@@ -17,7 +17,16 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
 4. notebook-5 metrics on the card: the stage-1 cloud against the committed
    stage-3 model — chamfer, F-score@τ and the F1 curve — held against the
    fixture's float64 cKDTree values and its JAX values.  The kernel's launch
-   count over phases 3-4 must be positive.
+   count over phases 3-4 must be positive;
+5. stage 2 at 512 (Bibi): camera estimation on phase 3's grid, for the
+   front view and a planted drone view, at ``run_stage2``'s defaults
+   (generations 40, population 64, cd_rounds 6, seed 0, with the retry
+   family and the quarter-step polish), against the JAX package's numbers
+   in ``tests/fixtures/torch_port_Bibi_512_stage2.npz``: a candidate batch's
+   IoUs, the keypoint fit's loss, the final IoUs of a run on the JAX draws
+   and of one on the port's own generator; the returned IoUs re-scored, the
+   camera JSONs saved and read back; cold and warm wall time per view, peak
+   device memory, and the profiler's device-busy share and top kernels.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -32,18 +41,28 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
 
+from pbr3d_torch import config, pipeline
+from pbr3d_torch.camera.align import _batch_iou, evaluate_camera_iou, mask_labels_selected
+from pbr3d_torch.camera.estimate import (
+    auto_compute_initial_params_matching_bbox,
+    optimize_camera_with_keypoints,
+)
+from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
+from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
 from pbr3d_torch.carving.fused import carve_monument_fused
 from pbr3d_torch.carving.stage1 import global_carve
-from pbr3d_torch.carving.voxel import all_points
+from pbr3d_torch.carving.voxel import all_points, surface_points_by_parts
 from pbr3d_torch.config import rgb_to_labels
 from pbr3d_torch.eval import inter
-from pbr3d_torch.io.artifacts import load_voxel_grid_labels, save_voxel_grid
+from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels, save_voxel_grid
 from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.ops.cuda_kernels import load_extension, min_dist2_kernel, min_dist2_plain
+from pbr3d_torch.pipeline import ALIGN_PARTS, run_stage2_views
 
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "tests/fixtures/torch_port_Bibi_512.npz"
@@ -60,6 +79,19 @@ KD_F_ATOL = 1e-3
 #: per point (tests/test_eval.py:49).
 JAX_RTOL = 1e-2
 KERNEL_SHAPES = ((777, 1311), (19, 1000), (100, 1), (100, 0), (50000, 50000))
+
+FIXTURE2 = REPO / "tests/fixtures/torch_port_Bibi_512_stage2.npz"
+VIEWS = ("front", "drone")
+#: Candidate IoUs, port vs JAX on the same cameras: equal but for pixels on
+#: a rounding tie, each of which moves an IoU by about 1/union.
+BATCH_IOU_ATOL = 1e-3
+#: The keypoint fit may not end worse than the JAX package's.
+LM_LOSS_RTOL = 1e-3
+#: Final IoU of a run on the JAX draws vs the JAX run's; of a run on the
+#: port's own generator vs the worst of five JAX seeds.  The search is
+#: chaotic in its start: JAX itself, started 0.5 off its drone keypoint
+#: fit, ends 0.03 below its seed-0 IoU.
+FINAL_IOU_ATOL = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -176,6 +208,138 @@ def phase_metrics(fx, grid: np.ndarray) -> None:
     check(np.allclose(curve, fx["jax_f1_curve"], rtol=JAX_RTOL, atol=0), "F1 curve vs JAX")
 
 
+def _device_profile(fn):
+    """(wall s, device-busy s, top kernels [(name, ms, launches)]) of ``fn()``
+    under ``torch.profiler``: busy is the union of the kernels' intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, -float("inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    top = sorted(((k, *v) for k, v in by_name.items()), key=lambda r: -r[1])[:8]
+    return wall, busy / 1e6, top
+
+
+def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> None:
+    views = {v: fx2[f"{v}_mask"] for v in VIEWS}
+    draws = {s: fx2[f"draws_{s}"] for s in (0, 1, 3)}
+    ids = config.part_ids(ALIGN_PARTS)
+    grid_dev = torch.as_tensor(grid, device=device)
+    shell = surface_points_by_parts(grid_dev, ALIGN_PARTS, device=device)
+    log(f"stage2 shell: {shell[0].shape[0]} points of {list(ALIGN_PARTS)}")
+    for v in VIEWS:
+        gt = torch.as_tensor(mask_labels_selected(views[v], ALIGN_PARTS), device=device)
+        cams = torch.as_tensor(fx2[f"{v}_batch"], device=device)
+        ious = _batch_iou(cams, *shell, gt, ids, *views[v].shape).cpu().numpy()
+        err = np.abs(ious - fx2[f"{v}_batch_iou"])
+        ms = cuda_ms(lambda: _batch_iou(cams, *shell, gt, ids, *views[v].shape), 10)
+        log(f"stage2 {v} candidate batch {cams.shape[0]} cams on {views[v].shape}: "
+            f"max_abs_err={err.max():.3e} unequal={int((err > 0).sum())} "
+            f"tol={BATCH_IOU_ATOL:g} best={ious.max():.6f} batch_ms={ms:.3f}")
+        check(err.max() <= BATCH_IOU_ATOL, f"{v}: candidate IoUs vs JAX off by {err.max()}")
+
+        vk, ik = extract_minaret_kps_for_view(grid, views[v])
+        init = auto_compute_initial_params_matching_bbox(grid_dev, views[v], ALIGN_PARTS, device=device)
+        check(np.array_equal(params_to_vector(init), fx2[f"{v}_init"]), f"{v}: bbox init vs JAX")
+        t0 = time.perf_counter()
+        kp = optimize_camera_with_keypoints(vk, ik, views[v].shape, init, device=device)
+        secs = time.perf_counter() - t0
+        ref = float(fx2[f"{v}_kp_loss"])
+        log(f"stage2 {v} keypoints={len(ik)} lm_loss={kp['loss']!r} jax={ref!r} "
+            f"|dx|={np.linalg.norm(params_to_vector(kp) - fx2[f'{v}_kp']):.4f} lm_s={secs:.3f} "
+            f"kp={params_to_vector(kp).tolist()}")
+        check(kp["loss"] <= ref * (1 + LM_LOSS_RTOL), f"{v}: LM loss {kp['loss']} vs JAX {ref}")
+
+    def report(tag, cams, ious):
+        """Log each view's final IoU against the JAX run's; the returned IoU
+        must be the final camera's score on the search objective."""
+        for v in cams["final"]:
+            final = cams["final"][v]
+            gt = torch.as_tensor(mask_labels_selected(views[v], ALIGN_PARTS), device=device)
+            rescored = float(_batch_iou(torch.as_tensor(params_to_vector(final), device=device)[None],
+                                        *shell, gt, ids, *views[v].shape)[0])
+            solid = evaluate_camera_iou(grid_dev, views[v], ALIGN_PARTS, final, device=device)
+            log(f"stage2 {v} {tag}: final_iou={ious[v]!r} jax={float(fx2[f'{v}_final_iou'])!r} "
+                f"rescored={rescored!r} solid_iou={solid!r} "
+                f"jax_solid={float(fx2[f'{v}_final_solid_iou'])!r} "
+                f"cameras_identical={np.array_equal(params_to_vector(final), fx2[f'{v}_final'])}")
+            check(rescored == ious[v], f"{v}: returned IoU {ious[v]} re-scores as {rescored}")
+
+    def above_seed_floor(ious):
+        for v in VIEWS:
+            floor = float(fx2[f"{v}_seed_ious"].min())
+            log(f"stage2 {v}: final_iou={ious[v]!r} vs jax_seeds={fx2[f'{v}_seed_ious'].tolist()}")
+            check(ious[v] >= floor - FINAL_IOU_ATOL, f"{v}: own-generator IoU {ious[v]} < {floor}")
+
+    torch.cuda.reset_peak_memory_stats()
+    for v in VIEWS:  # the body on the JAX draws, one view at a time: cold, warm
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cams, ious = run_stage2_views("Bibi", grid, {v: views[v]}, draws=draws, device=device)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log(f"stage2 {v} body cold_s={times[0]:.3f} warm_s={times[1]:.3f}")
+        report("jax-draws", cams, ious)
+    log(f"stage2 peak_mem_bytes={torch.cuda.max_memory_allocated()}")
+
+    # The keypoint fit's objective has a near-flat ridge, and float32 steps
+    # taken in another order end elsewhere on it (the JAX fit itself moves
+    # by ~0.02 for a 1e-6 change of its init), which sends the searches down
+    # other paths.  Given the JAX fit, the body must follow the JAX run.
+    def jax_kp(vox_kps, img_kps, hw, init, device):
+        v = next(v for v in VIEWS if views[v].shape[:2] == tuple(hw))
+        return {**vector_to_params(fx2[f"{v}_kp"].astype(np.float64)), "loss": float(fx2[f"{v}_kp_loss"])}
+
+    with mock.patch.object(pipeline, "optimize_camera_with_keypoints", jax_kp):
+        cams, ious = run_stage2_views("Bibi", grid, views, draws=draws, device=device)
+        report("jax-draws+jax-kp", cams, ious)
+        for v in VIEWS:
+            check(abs(ious[v] - float(fx2[f"{v}_final_iou"])) <= FINAL_IOU_ATOL,
+                  f"{v}: final IoU {ious[v]} vs JAX {float(fx2[f'{v}_final_iou'])} from the same kp fit")
+        cams, ious = run_stage2_views("Bibi", grid, views, device=device)  # the port's own generator
+        report("own-generator+jax-kp", cams, ious)
+        above_seed_floor(ious)
+
+    # The main path as a user runs it: the port's own generator and fit,
+    # both views, the artifacts, under the profiler.
+    with tempfile.TemporaryDirectory() as tmp:
+        out: dict = {}
+        wall, busy, top = _device_profile(lambda: out.update(zip(
+            ("cams", "ious"), run_stage2_views("Bibi", grid, views, tmp, device=device))))
+        log(f"stage2 profiled body (both views, own generator): wall_s={wall:.3f} "
+            f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
+        for name, ms, n in top:
+            log(f"stage2   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+        report("own-generator", out["cams"], out["ious"])
+        above_seed_floor(out["ious"])
+        for tag, params in out["cams"].items():
+            path = Path(tmp) / "2.Perspective_Camera_Estimation" / f"Bibi_camera_params_{tag}.json"
+            raw = json.loads(path.read_text())
+            check(sorted(raw) == sorted(VIEWS), f"{tag} JSON views {sorted(raw)}")
+            for v in VIEWS:
+                back = load_camera_json(path, v)
+                check(np.allclose(params_to_vector(back), params_to_vector(params[v]), rtol=1e-6),
+                      f"{tag}/{v} JSON does not read back")
+                keys = ["cam_pos", "target", "f", "cx", "cy"] + (["H", "W"] if tag == "final" else [])
+                check(list(raw[v]) == keys, f"{tag}/{v} JSON keys {list(raw[v])}")
+        log("stage2 artifacts: init/kp/final camera JSONs saved and read back in the reference layout")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -199,6 +363,7 @@ def main() -> int:
     phase_metrics(fx, grid)
     launches = min_dist2_kernel.launches
     check(launches > 0, "the metrics never launched the min-dist kernel")
+    phase_stage2(np.load(FIXTURE2), grid)
 
     log(card)
     log(json.dumps({"kernels": [{

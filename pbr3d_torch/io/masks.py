@@ -1,8 +1,8 @@
 """Semantic part-mask preparation (host side), as in ``pbr3d.io.masks``.
 
-``cv2`` is imported inside :func:`prepare_masks` only: the PNG dataset is
-dataset IO, not the compute path, and the machines that run the port on the
-card need not have OpenCV.  See ``pbr3d.io.masks`` for the replicated
+``cv2`` is imported inside the functions that read PNGs only: the PNG
+dataset is dataset IO, not the compute path, and the machines that run the
+port on the card need not have OpenCV.  See ``pbr3d.io.masks`` for the replicated
 reference behaviours (full-resolution interior folding, the INTER_LINEAR
 resize quirk, the Charminar window override, the binary silhouette rule).
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -69,6 +70,30 @@ def _resize_to_max(img: np.ndarray, max_dim: int, linear: bool) -> np.ndarray:
     s = max_dim / max(h, w)
     interp = cv2.INTER_LINEAR if linear else cv2.INTER_NEAREST
     return cv2.resize(img, (int(w * s), int(h * s)), interpolation=interp)
+
+
+def load_mask_rgb(
+    root_path: str | Path,
+    monument_name: str,
+    view_name: str,
+    max_dim: Optional[int] = None,
+) -> np.ndarray:
+    """RGB uint8 (H, W, 3) part mask; nearest-resized if max_dim is given."""
+    path = Path(root_path) / monument_name / "masks" / f"{monument_name}_{view_name}_mask.png"
+    mask = _read_rgb(path)
+    if max_dim is not None:
+        mask = _resize_to_max(mask, max_dim, linear=False)
+    return mask
+
+
+def load_mask_labels(
+    root_path: str | Path,
+    monument_name: str,
+    view_name: str,
+    max_dim: Optional[int] = None,
+) -> np.ndarray:
+    """uint8 (H, W) label plane version of :func:`load_mask_rgb`."""
+    return rgb_to_labels(load_mask_rgb(root_path, monument_name, view_name, max_dim))
 
 
 def prepare_masks(

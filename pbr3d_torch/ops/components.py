@@ -2,8 +2,10 @@
 
 Copied from ``pbr3d.ops.components`` (whose module imports jax): the
 scipy-identical labeller and the bbox/count/centroid statistics that stage 1's
-component-guided carve and back-minaret recolor consume.  The JAX package's
-device labeller is not ported; production routes labelling to the host.
+component-guided carve and back-minaret recolor and stage 2's minaret
+keypoints consume.  The JAX package's device labeller is not ported;
+production routes labelling to the host, and so do the public
+:func:`connected_components` and :func:`component_stats` here.
 """
 
 from __future__ import annotations
@@ -148,3 +150,18 @@ def _host_scipy_label(mask_np: np.ndarray, connectivity: str) -> Tuple[np.ndarra
 
     labels, n = scipy.ndimage.label(mask_np, structure=structure)
     return labels.astype(np.int32), int(n)
+
+
+def connected_components(mask, connectivity: str = "face") -> Tuple[np.ndarray, int]:
+    """Label connected components of a boolean 2D/3D host mask.
+
+    ``connectivity``: "face" (scipy default: 4-conn in 2D, 6-conn in 3D) or
+    "full" (3^d box: 8-conn in 2D, 26-conn in 3D).  Returns ``(labels int32,
+    n)``: 0 is background, 1..n in scipy raster order."""
+    return _host_scipy_label(np.asarray(mask), connectivity)
+
+
+def component_stats(labels: np.ndarray, n: int):
+    """Per-component ``bbox_min``, ``bbox_max`` (inclusive), ``centroid`` and
+    ``count``, host arrays indexed by component id 1..n (row 0 unused)."""
+    return _host_component_stats(np.asarray(labels), n)

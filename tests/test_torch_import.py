@@ -21,6 +21,13 @@ MODULES = [
     "pbr3d_torch.carving.stage1",
     "pbr3d_torch.carving.fused",
     "pbr3d_torch.carving.voxel",
+    "pbr3d_torch.ops.cameramath",
+    "pbr3d_torch.ops.projection",
+    "pbr3d_torch.camera",
+    "pbr3d_torch.camera.geometry",
+    "pbr3d_torch.camera.keypoints",
+    "pbr3d_torch.camera.estimate",
+    "pbr3d_torch.camera.align",
     "pbr3d_torch.eval.inter",
     "pbr3d_torch.pipeline",
     "chip_smoke",
