@@ -26,7 +26,18 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    IoUs, the keypoint fit's loss, the final IoUs of a run on the JAX draws
    and of one on the port's own generator; the returned IoUs re-scored, the
    camera JSONs saved and read back; cold and warm wall time per view, peak
-   device memory, and the profiler's device-busy share and top kernels.
+   device memory, and the profiler's device-busy share and top kernels;
+6. stage 3 at 512 (Bibi): part-wise refinement on phase 3's grid under the
+   JAX package's stage-2 front camera, against
+   ``tests/fixtures/torch_port_Bibi_512_stage3.npz``: the point table, every
+   part's identity z-buffer, three candidate batches of the dome search (the
+   plain and the penalized coarse-A batch, the exact refine batch), the
+   rebuild of the JAX run's final deforms and its nb4 cells; then
+   ``run_stage3_body`` at its golden defaults (both profiles, both
+   schedules, the exact nb4 verify), whose picked nb4 total, cells, whole
+   IoU and mean part IoU are gated and whose artifacts are read back; cold
+   and warm wall, peak device memory, the ``[prof]`` phases, and the
+   profiler's device-busy share and top kernels.
 
 The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -35,7 +46,10 @@ there is no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,11 +72,15 @@ from pbr3d_torch.carving.fused import carve_monument_fused
 from pbr3d_torch.carving.stage1 import global_carve
 from pbr3d_torch.carving.voxel import all_points, surface_points_by_parts
 from pbr3d_torch.config import rgb_to_labels
+from pbr3d_torch.deform import search, verify
+from pbr3d_torch.deform.warp import build_deformed_grid_fused
 from pbr3d_torch.eval import inter
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels, save_voxel_grid
-from pbr3d_torch.io.masks import MaskSet
+from pbr3d_torch.io.masks import MaskSet, compute_binary_gt
 from pbr3d_torch.ops.cuda_kernels import load_extension, min_dist2_kernel, min_dist2_plain
-from pbr3d_torch.pipeline import ALIGN_PARTS, run_stage2_views
+from pbr3d_torch.ops.point_table import build_point_table
+from pbr3d_torch.pipeline import ALIGN_PARTS, run_stage2_views, run_stage3_body
+from pbr3d_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "tests/fixtures/torch_port_Bibi_512.npz"
@@ -92,6 +110,18 @@ LM_LOSS_RTOL = 1e-3
 #: chaotic in its start: JAX itself, started 0.5 off its drone keypoint
 #: fit, ends 0.03 below its seed-0 IoU.
 FINAL_IOU_ATOL = 0.01
+
+FIXTURE3 = REPO / "tests/fixtures/torch_port_Bibi_512_stage3.npz"
+#: Score components of a candidate batch and nb4 cells, port vs JAX on the
+#: same deforms: equal but for rounding-tie pixels, each worth ~1/union.
+COMP_ATOL = 1e-3
+#: The picked exact nb4 total may end at most this far below the JAX run's.
+NB4_TOTAL_ATOL = 0.01
+#: ``enforce_no_regression``'s own tolerances (parts 1e-6).
+NB4_TOL = {"whole": 0.01, "minarets": 0.005}
+#: bench.py:72-74.
+STAGE3_WHOLE_IOU_MIN = 0.80
+STAGE3_MEAN_PART_IOU_MIN = 0.50
 
 
 class SmokeFailure(RuntimeError):
@@ -340,6 +370,194 @@ def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> None:
         log("stage2 artifacts: init/kp/final camera JSONs saved and read back in the reference layout")
 
 
+def _unequal(ours: np.ndarray, ref: np.ndarray):
+    """(unequal pixels, of them finite depths one float32 ulp apart)."""
+    diff = ours != ref
+    both = diff & np.isfinite(ours) & np.isfinite(ref)
+    ulps = np.abs(ours[both].view(np.int32).astype(np.int64) - ref[both].view(np.int32).astype(np.int64))
+    return int(diff.sum()), int((ulps <= 1).sum())
+
+
+def _prof_totals(text: str) -> dict:
+    """Seconds and count per ``[prof]`` phase, per-part names folded."""
+    out: dict = {}
+    for name, secs in re.findall(r"\[prof\] (\S+): ([\d.]+)s", text):
+        name = re.sub(r"^opd\.[^.]+\.", "opd.", name)
+        name = re.sub(r"^(refine_parts\.(search|resweep\d+))\..*", r"\1", name)
+        s, n = out.get(name, (0.0, 0))
+        out[name] = (s + float(secs), n + 1)
+    return out
+
+
+def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
+    mask = fx2["front_mask"]
+    cam = vector_to_params(fx2["front_final"].astype(np.float64))
+    H, W = mask.shape
+    padded = np.pad(grid, ((0, 0), (0, config.STAGE3_PAD["Bibi"]), (0, 0)))
+    cam_vec = torch.as_tensor(params_to_vector(cam), device=device)
+
+    # 1. the point table
+    table = build_point_table(padded, device=device)
+    for k in ("counts", "shell_counts", "sums"):
+        check(np.array_equal(getattr(table, k), fx3[f"table_{k}"]), f"point table {k} vs JAX")
+    dome = config.PART_IDS["dome"]
+    n_shell = table.shell_count(dome)
+    coarse = table.shell_window(dome, max(4, -(-n_shell // 24576)))
+    fine = table.shell_window(dome, max(2, -(-n_shell // 65536)))
+    check(np.array_equal(coarse.cpu().numpy(), fx3["dome_coarse_shell"]), "dome coarse shell vs JAX")
+    check(fine.shape[0] == int(fx3["dome_r_n"]), f"dome fine shell {fine.shape[0]} points")
+    log(f"stage3 table: {table.n} points, counts/shell counts/sums equal to JAX; "
+        f"dome shells coarse {coarse.shape[0]} fine {fine.shape[0]}")
+
+    # 2. identity z-buffers of every present part
+    parts = [str(p) for p in fx3["zb_parts"]]
+    zb = search.all_part_zbuffers(table.coords, table.labels, params_to_vector(cam), parts, (H, W))
+    ms = cuda_ms(lambda: search.all_part_zbuffers(table.coords, table.labels,
+                                                  params_to_vector(cam), parts, (H, W)), 3)
+    total, ties = 0, 0
+    for i, p in enumerate(parts):
+        n, t = _unequal(zb[p][:H, :W], fx3["zb_identity"][i])
+        total, ties = total + n, ties + t
+    log(f"stage3 identity z-buffers of {len(parts)} parts: unequal_px={total} "
+        f"of_them_one_ulp_ties={ties} ms={ms:.3f}")
+    check(total == ties, f"identity z-buffers: {total - ties} pixels differ beyond a rounding tie")
+
+    # 3. three candidate batches of the JAX run's dome search
+    center = torch.as_tensor(np.asarray(table.center(dome), np.float32), device=device)
+    common = dict(cam_vec=cam_vec, image_hw=(H, W), voxel_shape=padded.shape, center=center,
+                  gt_part=torch.as_tensor(mask == dome, device=device),
+                  rest_zbuf=torch.as_tensor(fx3["dome_rest"], device=device))
+    nb = {f"nb_{k}": torch.as_tensor(fx3[f"dome_nb_{k}"], device=device)
+          for k in ("zb", "base", "gt", "floor", "valid")}
+    da = torch.as_tensor(fx3["dome_a_deforms"], device=device)
+    dr = torch.as_tensor(fx3["dome_r_deforms"], device=device)
+    batches = (
+        ("coarse-A plain", lambda: search._batch_deform_visible_iou(
+            da, coarse, approx=True, **common), fx3["dome_a_comps"][:, 0]),
+        ("coarse-A penalized", lambda: search._batch_deform_visible_iou_penalized(
+            da, coarse, approx=True, **common, **nb), fx3["dome_a_comps"]),
+        ("exact refine penalized", lambda: search._batch_deform_visible_iou_penalized(
+            dr, fine, approx=False, **common, **nb), fx3["dome_r_comps"]),
+    )
+    for name, fn, ref in batches:
+        err = np.abs(fn().cpu().numpy() - ref)
+        ms = cuda_ms(fn, 5)
+        log(f"stage3 dome {name} batch {ref.shape[0]} deforms: max_abs_err={err.max():.3e} "
+            f"unequal={int((err > 0).sum())} of {err.size} tol={COMP_ATOL:g} batch_ms={ms:.3f}")
+        check(err.max() <= COMP_ATOL, f"dome {name}: components vs JAX off by {err.max()}")
+
+    # 4. the JAX run's final deforms, rebuilt
+    final = dict(zip((str(p) for p in fx3["final_parts"]), fx3["final_deforms"]))
+    points = {p: table.part_window(config.PART_IDS[p]) for p in final}
+    centers = {p: table.center(config.PART_IDS[p]) for p in final}
+    order = [p for p in config.PART_NAMES if p in final]
+
+    def rebuild():
+        return build_deformed_grid_fused(points, final, centers, (H, W), padded.shape, order)
+
+    built = rebuild().cpu().numpy()
+    ms = cuda_ms(rebuild, 3)
+    diff = int((built != fx3["deformed"]).sum())
+    log(f"stage3 rebuild of the JAX deforms: {int((built > 0).sum())} voxels, "
+        f"{diff} differ from the JAX grid, ms={ms:.3f}")
+    check(diff == 0, f"rebuild vs JAX deformed grid: {diff} voxels differ")
+    present = [p for p in config.PART_NAMES if p != "background" and table.count(config.PART_IDS[p])]
+    cells = verify._nb4_state(padded, built, mask, cam, parts=present, device=device)[0]
+    ref_cells = {str(k): (a, b) for k, a, b in zip(fx3["nb4_cells"], fx3["nb4_init"], fx3["nb4_def"])}
+    check(list(cells) == list(ref_cells), f"nb4 rows {list(cells)}")
+    err = max(abs(cells[k][j] - ref_cells[k][j]) for k in cells for j in (0, 1))
+    log(f"stage3 nb4 cells of the rebuilt grid: max_abs_err={err:.3e} tol={COMP_ATOL:g}")
+    check(err <= COMP_ATOL, f"nb4 cells vs JAX off by {err}")
+
+    # 5. the whole body at its golden defaults
+    totals: list = []
+    nb4_state = verify._nb4_state
+
+    def nb4_recorded(*a, **k):
+        res = nb4_state(*a, **k)
+        totals.append(sum(d for _, d in res[0].values()))
+        return res
+
+    def body(out_dir=None):
+        return run_stage3_body("Bibi", grid, mask, mask, cam, out_dir, device=device)
+
+    err_text = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        with mock.patch.object(verify, "_nb4_state", nb4_recorded), \
+                mock.patch.object(profiling, "PROFILE", True), contextlib.redirect_stderr(err_text):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            deforms, deformed = body(tmp)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        base = Path(tmp) / "3.Part-wise_3D_Refinement"
+        check(np.array_equal(load_voxel_grid_labels(base / "Bibi_deformed_voxel_grid.npz"), deformed),
+              "deformed grid artifact does not read back")
+        saved = json.loads((base / "Bibi_deform_params.json").read_text())
+        check(sorted(saved) == sorted(final), f"deform-params parts {sorted(saved)}")
+        check(all(list(d) == ["deform", "iou", "gt_px"]
+                  and list(d["deform"]) == ["scale_y", "shift_y", "scale_xz", "shift_xz"]
+                  for d in saved.values()), "deform-params JSON keys")
+        check(saved == json.loads(json.dumps(deforms)), "deform-params JSON does not read back")
+    log("stage3 artifacts: deformed grid and deform-params JSON saved and read back "
+        "in the JAX package's layout")
+    text = err_text.getvalue()
+    line = re.search(r"portfolio \[(.*)\] -> (\S+)", text)
+    labels = re.findall(r"'(\w+)=", line.group(1)) if line else []
+    log(f"stage3 portfolio: {dict(zip(labels, totals[:len(labels)]))} "
+        f"pick={line.group(2) if line else None} jax={dict(zip(fx3['portfolio_labels'].tolist(), fx3['portfolio_totals'].tolist()))} "
+        f"jax_pick={fx3['portfolio_pick']}")
+    for msg in re.findall(r"^\[stage3.*$", text, re.M):
+        log(f"stage3 log: {msg}")
+    for name, (secs, n) in sorted(_prof_totals(text).items(), key=lambda kv: -kv[1][0]):
+        log(f"stage3 [prof] {secs:9.2f} s  x{n:<5d} {name}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_deforms, warm_grid = body()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"stage3 body cold_s={cold:.3f} warm_s={warm:.3f} peak_mem_bytes={peak}")
+    check(warm_deforms == deforms and np.array_equal(warm_grid, deformed),
+          "a second run of the body gave other deforms")
+
+    moved = [p for p in final if not np.array_equal(search._deform_vec(deforms[p]["deform"]), final[p])]
+    log(f"stage3 final deforms vs JAX: {'identical' if not moved else f'differ in {moved}'}")
+    for p in final:
+        log(f"stage3   {p:15s} port={search._deform_vec(deforms[p]['deform']).tolist()} iou={deforms[p]['iou']:.4f} "
+            f"jax={final[p].tolist()}")
+    cells = nb4_state(padded, deformed, mask, cam, parts=present, device=device)[0]
+    total = sum(d for _, d in cells.values())
+    log(f"stage3 nb4 cells (init, deformed): "
+        f"{ {k: (round(a, 4), round(b, 4)) for k, (a, b) in cells.items()} } "
+        f"total={total!r} jax_total={float(fx3['nb4_total'])!r}")
+    check(total >= float(fx3["nb4_total"]) - NB4_TOTAL_ATOL,
+          f"picked nb4 total {total} < JAX {float(fx3['nb4_total'])} - {NB4_TOTAL_ATOL}")
+    regressed = [k for k, (a, b) in cells.items() if b + NB4_TOL.get(k, 1e-6) < a]
+    check(not regressed, f"nb4 cells regressed: {regressed}")
+
+    ids = set(torch.unique(torch.as_tensor(deformed, device=device)).cpu().tolist())
+    names = [p for p, i in config.PART_IDS.items() if 0 < i < 10 and i in ids]
+    zbs = verify._part_zbufs_grid(deformed, cam, H, W, names, device=device)
+    pr = np.isfinite(np.minimum.reduce(list(zbs.values())))[:H, :W]
+    whole = verify._iou_bool_np(compute_binary_gt(mask, grid), pr)
+    scored = [d["iou"] for d in deforms.values() if d.get("gt_px", 1) > 0]
+    mean_part = sum(scored) / max(len(scored), 1)
+    log(f"stage3 whole_iou={whole!r} jax={float(fx3['whole_iou'])!r} min={STAGE3_WHOLE_IOU_MIN} "
+        f"mean_part_iou={mean_part!r} jax={float(fx3['mean_part_iou'])!r} "
+        f"min={STAGE3_MEAN_PART_IOU_MIN}")
+    check(whole >= STAGE3_WHOLE_IOU_MIN, f"stage-3 whole IoU {whole}")
+    check(mean_part >= STAGE3_MEAN_PART_IOU_MIN, f"stage-3 mean part IoU {mean_part}")
+
+    wall, busy, top = _device_profile(body)
+    log(f"stage3 profiled body: wall_s={wall:.3f} device_busy_s={busy:.4f} "
+        f"busy_share={busy / wall:.4f}")
+    for name, ms, n in top:
+        log(f"stage3   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -363,7 +581,9 @@ def main() -> int:
     phase_metrics(fx, grid)
     launches = min_dist2_kernel.launches
     check(launches > 0, "the metrics never launched the min-dist kernel")
-    phase_stage2(np.load(FIXTURE2), grid)
+    fx2 = np.load(FIXTURE2)
+    phase_stage2(fx2, grid)
+    phase_stage3(np.load(FIXTURE3), fx2, grid)
 
     log(card)
     log(json.dumps({"kernels": [{

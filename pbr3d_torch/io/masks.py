@@ -96,6 +96,35 @@ def load_mask_labels(
     return rgb_to_labels(load_mask_rgb(root_path, monument_name, view_name, max_dim))
 
 
+def resize_mask_to_voxel_grid(mask_rgb: np.ndarray, grid_shape) -> np.ndarray:
+    """Resize so max(mask dims) == max(grid dims); nearest, ROUNDED dims
+    (the notebook-4 loader, eval_helpers_intra.py:31-54; stage 1 truncates)."""
+    import cv2
+
+    H, W = mask_rgb.shape[:2]
+    scale = max(grid_shape[:3]) / max(H, W)
+    return cv2.resize(
+        mask_rgb, (int(round(W * scale)), int(round(H * scale))),
+        interpolation=cv2.INTER_NEAREST,
+    )
+
+
+def load_mask_labels_for_grid(
+    root_path: str | Path, monument_name: str, view_name: str, grid_shape,
+) -> np.ndarray:
+    """uint8 (H, W) label plane of a view, resized to a voxel grid as the
+    notebook-4 evaluation resizes it (the exact-verify mask of stage 3)."""
+    path = Path(root_path) / monument_name / "masks" / f"{monument_name}_{view_name}_mask.png"
+    return rgb_to_labels(resize_mask_to_voxel_grid(_read_rgb(path), grid_shape))
+
+
+def compute_binary_gt(mask_labels: np.ndarray, grid_labels: np.ndarray) -> np.ndarray:
+    """GT silhouette: the mask pixels whose label is present in the grid
+    (eval_helpers_intra.py:274-285)."""
+    present = np.unique(grid_labels)
+    return np.isin(mask_labels, present[present > 0])
+
+
 def prepare_masks(
     root_path: str | Path,
     monument_name: str,

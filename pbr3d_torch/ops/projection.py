@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from pbr3d_torch.ops.cameramath import project_points, project_points_soa
@@ -177,15 +178,21 @@ def partwise_iou(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Colour-exact per-part IoU ``(..., K)`` and its mean ``(...)`` between
     ``(..., H, W)`` label planes and one ``(H, W)`` ground truth (reference:
-    camera_estimation.py:770-788).  A part with an empty union scores 0.0."""
+    camera_estimation.py:770-788).  A part with an empty union scores 0.0.
+    The mean is the JAX package's: the left-to-right sum times the float32
+    reciprocal of K (XLA turns ``jnp.mean``'s division into that product)."""
     part_ids = torch.as_tensor(part_ids, device=proj_labels.device).to(torch.int64)[:, None]
+    K = part_ids.shape[0]
     hw = gt_labels.shape[-2] * gt_labels.shape[-1]
     p = proj_labels.reshape(*proj_labels.shape[:-2], 1, hw) == part_ids
     g = gt_labels.reshape(1, hw) == part_ids
     inter = (p & g).sum(dim=-1).to(torch.float32)
     union = (p | g).sum(dim=-1).to(torch.float32)
     iou = torch.where(union > 0, inter / union.clamp_min(1.0), torch.zeros_like(union))
-    return iou, iou.sum(dim=-1) / part_ids.shape[0]
+    total = iou[..., 0]
+    for k in range(1, K):
+        total = total + iou[..., k]
+    return iou, total * float(np.float32(1) / np.float32(K))
 
 
 def binary_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

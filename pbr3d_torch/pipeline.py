@@ -2,16 +2,20 @@
 
 Stage boundaries and file formats match the reference exactly (npz voxel
 grids under ``1.Orthographic_Voxel_Carving``, camera JSONs
-``{init,kp,final} x {view}`` under ``2.Perspective_Camera_Estimation``), so
-either implementation can produce a stage and the other can consume it.
-Stages 1 and 2, so far.
+``{init,kp,final} x {view}`` under ``2.Perspective_Camera_Estimation``, the
+deformed grid and the deform-params JSON under
+``3.Part-wise_3D_Refinement``), so either implementation can produce a stage
+and the other can consume it.  Stages 1, 2 and 3 (``run_stage1``,
+``run_stage2``, ``run_stage3``); ``run_pipeline``/``run_all`` are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,8 +31,12 @@ from pbr3d_torch.camera.estimate import (
 from pbr3d_torch.camera.geometry import dolly_zoom, reparam_principal_point, yaw_camera_about_center
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view, extract_minaret_voxels_by_label
 from pbr3d_torch.carving.fused import carve_monument_fused
+from pbr3d_torch.deform import verify
+from pbr3d_torch.deform.search import _deform_vec, prepare_shared_state, refine_parts
+from pbr3d_torch.deform.warp import build_deformed_grid_fused
 from pbr3d_torch.io.artifacts import save_camera_params, save_voxel_grid
-from pbr3d_torch.io.masks import load_mask_labels, prepare_masks
+from pbr3d_torch.io.masks import load_mask_labels, load_mask_labels_for_grid, prepare_masks
+from pbr3d_torch.ops.point_table import build_point_table
 from pbr3d_torch.utils.profiling import prof
 
 ALIGN_PARTS = ("front_minarets", "back_minarets")  # notebook 2 cells 5/9
@@ -208,3 +216,229 @@ def run_stage2_views(
                 {v: {k: p[k] for k in p if k != "loss"} for v, p in params.items()},
             )
     return cameras, ious
+
+
+def run_stage3(
+    monument: str,
+    grid_labels: np.ndarray,
+    cam_final_front: Dict,
+    data_root: str | Path = config.data_root(),
+    out_dir: Optional[str | Path] = None,
+    *,
+    device,
+    exact_verify: bool = True,
+    **kw,
+):
+    """Part-wise 3D refinement (notebook 3) under the fixed front camera,
+    reading the front mask from ``data_root`` like ``pbr3d.pipeline.
+    run_stage3``: at the unpadded grid's max dim for the search, and
+    resized to the padded grid (rounded dims) for the exact nb4 verify.
+    ``kw`` goes to :func:`run_stage3_body`."""
+    max_dim = int(np.max(grid_labels.shape))
+    mask = load_mask_labels(data_root, monument, "front", max_dim)
+    mask_nb4 = None
+    if exact_verify:
+        pad = kw.get("pad")
+        pad = config.STAGE3_PAD.get(monument, 0) if pad is None else pad
+        D, H, W = grid_labels.shape[:3]
+        mask_nb4 = load_mask_labels_for_grid(data_root, monument, "front", (D, H + pad, W))
+    return run_stage3_body(monument, grid_labels, mask, mask_nb4, cam_final_front, out_dir,
+                           device=device, exact_verify=exact_verify, **kw)
+
+
+def run_stage3_body(
+    monument: str,
+    grid_labels: np.ndarray,
+    mask: np.ndarray,
+    mask_nb4: Optional[np.ndarray],
+    cam_final_front: Dict,
+    out_dir: Optional[str | Path] = None,
+    *,
+    device,
+    pad: Optional[int] = None,
+    part_names: Optional[Sequence[str]] = None,
+    overrides: Optional[Dict | str | Path] = None,
+    exact_verify: bool = True,
+    **search_kw,
+) -> Tuple[Dict[str, Dict], np.ndarray]:
+    """The body of :func:`run_stage3` on in-memory masks; returns (deform
+    params per part, deformed uint8 label grid).
+
+    ``grid_labels`` is the stage-1 grid; it is padded by ``pad`` rows on
+    axis 1 (default ``config.STAGE3_PAD``).  ``mask`` is the front label
+    plane at the unpadded grid's max dim; ``mask_nb4`` the notebook-4 mask
+    of the padded grid (needed with ``exact_verify``).  ``overrides`` —
+    {part: deform} or a path to a deform-params JSON (this package's or the
+    JAX package's): those parts take the deform verbatim.
+
+    The portfolio is the JAX package's (``pbr3d.pipeline.run_stage3``):
+    at max dim <= 256 the fast profile; above it, with ``exact_verify``,
+    the production profile plus the heavy one (union lattices 11∪16 and
+    9∪13, three sweeps, a (2.5, 7) resweep window).  Each profile runs the
+    greedy/ensemble schedule (``portfolio``, default (0, 1)) with a
+    dual-scored pass 0: the second chain is skipped when the two objectives
+    never diverged, else it adopts the first chain's pass-0 prefix.  The
+    chains run one after the other (the JAX package overlaps them in a
+    thread; stage 3 draws nothing at random, so the order changes no
+    result).  The exact nb4 total picks the variant, ``enforce_no_regression``
+    verifies it, and if the verify reverted anything the other variants are
+    verified too and the best post-verify total wins."""
+    if isinstance(overrides, (str, Path)):
+        with open(overrides) as fh:
+            overrides = json.load(fh)
+        overrides = {p: (d["deform"] if "deform" in d else d) for p, d in overrides.items()}
+    if exact_verify and mask_nb4 is None:
+        raise ValueError("exact_verify needs the notebook-4 mask (mask_nb4)")
+    if pad is None:
+        pad = config.STAGE3_PAD.get(monument, 0)
+    # the search profile follows the UNPADDED grid (notebook 3 loads the
+    # front mask at the stage-1 resolution before padding)
+    max_dim = int(np.max(grid_labels.shape))
+    if pad:
+        grid_labels = np.pad(grid_labels, ((0, 0), (0, pad), (0, 0)))
+    search_kw = dict(search_kw)
+    extra_profiles = []
+    if max_dim <= 256:
+        search_kw.setdefault("exact_topk", 6)
+        search_kw.setdefault("fine_cap", 32768)
+        search_kw.setdefault("resweep_window", (1.5, 5))
+    else:
+        heavy = dict(
+            scale_range=[(0.5, 2.0, 11), (0.5, 2.0, 16)],
+            shift_range=[(-100.0, 100.0, 9), (-100.0, 100.0, 13)],
+            sweeps=3, resweep_window=(2.5, 7),
+        )
+        if exact_verify and not any(k in search_kw for k in heavy):
+            extra_profiles = [("w", heavy)]
+
+    with prof(f"stage3.{monument}.table"):
+        table = build_point_table(grid_labels, device=device)
+    schedule = search_kw.pop("portfolio", (0.0, 1.0))
+    if not exact_verify:
+        schedule = schedule[:1]
+    profiles = [("", {})] + extra_profiles
+
+    all_parts = [p for p in (part_names or
+                             [q for q in config.PART_NAMES if q != "background"])
+                 if table.count(config.PART_IDS[p]) > 0]
+    with prof(f"stage3.{monument}.shared_prep"):
+        part_sets, centers_t, zb_identity = prepare_shared_state(
+            mask, cam_final_front, all_parts, table)
+    part_points = {p: part_sets[p][0] for p in all_parts}
+
+    def _run_variant(gw, prof_kw, tag, **chain_kw):
+        with prof(f"stage3.{monument}.refine_parts[{tag}g{gw:g}]"):
+            return refine_parts(
+                grid_labels, mask, cam_final_front, part_names, device=device,
+                overrides=overrides, table=table,
+                zb_identity_in=zb_identity, part_sets_in=part_sets,
+                centers_in=centers_t, first_gain_w=gw,
+                **chain_kw, **{**search_kw, **prof_kw},
+            )
+
+    def _run_schedule(prof_kw, tag):
+        """One profile's schedule portfolio; returns (variants, labels)."""
+        if len(schedule) == 1:
+            return [_run_variant(schedule[0], prof_kw, tag)], [f"{tag}g{schedule[0]:g}"]
+        flag: Dict = {}
+        snap: Dict = {}
+        v0 = _run_variant(schedule[0], prof_kw, tag, dual_gain_w=schedule[1],
+                          pass0_done=lambda d: flag.update(diverged=d),
+                          pass0_snapshot_out=snap)
+        if not flag.get("diverged"):
+            print(f"[stage3] {monument}: portfolio [{tag}] deduped "
+                  f"(pass-0 objectives never diverged)", file=sys.stderr)
+            return [v0], [f"{tag}g{schedule[0]:g}"]
+        prefix = snap if snap.get("idx") else None
+        rest = [_run_variant(g2, prof_kw, tag, pass0_prefix=prefix) for g2 in schedule[1:]]
+        return [v0] + rest, [f"{tag}g{g:g}" for g in schedule]
+
+    variants, labels = [], []
+    for tag, prof_kw in profiles:
+        vs, ls = _run_schedule(prof_kw, tag)
+        variants += vs
+        labels += ls
+
+    centers = {p: table.center(config.PART_IDS[p]) for p in variants[0]}
+    part_order = [p for p in config.PART_NAMES if p in variants[0]]
+
+    def build_fn(deform_vecs):
+        return build_deformed_grid_fused(
+            part_points, deform_vecs, centers, mask.shape[:2],
+            grid_labels.shape[:3], part_order,
+        )
+
+    def _vecs(dd):
+        return {p: _deform_vec(d["deform"]) for p, d in dd.items()}
+
+    deforms = variants[0]
+    if not exact_verify:
+        deformed = build_fn(_vecs(deforms)).cpu().numpy()
+    else:
+        present = [p for p in config.PART_NAMES
+                   if p != "background" and table.count(config.PART_IDS[p]) > 0]
+
+        def _dsnap(dd):
+            return {p: tuple(sorted(d["deform"].items())) for p, d in dd.items()}
+
+        if len(variants) > 1 and all(_dsnap(v) == _dsnap(variants[0]) for v in variants[1:]):
+            variants, labels = variants[:1], labels[:1]
+
+        # the search's identity z-buffers are the init grid's only when the
+        # two masks share a shape: planes pad to even dims here, so a
+        # one-row difference would pass ``_nb4_state``'s plane-shape test
+        zb_i_shared = zb_identity if mask.shape == mask_nb4.shape else None
+
+        def _exact_state(grid_def):
+            nonlocal zb_i_shared
+            cells, zb_i_shared, zb_d, gt_planes, parts_v, mask_p = verify._nb4_state(
+                grid_labels, grid_def, mask_nb4, cam_final_front,
+                zb_i=zb_i_shared, parts=present, device=device,
+            )
+            return cells, zb_i_shared, zb_d, gt_planes, parts_v, mask_p, grid_def
+
+        def _total(cells):
+            return sum(v for _, v in cells.values())
+
+        pick, pick_state = 0, None
+        if len(variants) > 1:
+            with prof(f"stage3.{monument}.portfolio_pick"):
+                states = [_exact_state(build_fn(_vecs(dd))) for dd in variants]
+                totals = [_total(st[0]) for st in states]
+                pick = int(np.argmax(totals))
+                pick_state = states[pick]
+                print(f"[stage3] {monument}: portfolio "
+                      f"{[f'{l}={t:.3f}' for l, t in zip(labels, totals)]}"
+                      f" -> {labels[pick]}", file=sys.stderr)
+        with prof(f"stage3.{monument}.exact_verify"):
+            before = _dsnap(variants[pick])
+            deforms, deformed = verify.enforce_no_regression(
+                grid_labels, variants[pick], mask_nb4, cam_final_front,
+                build_fn, zb_i=zb_i_shared, parts=present,
+                first_state=pick_state, device=device,
+            )
+            if len(variants) > 1 and _dsnap(deforms) != before:
+                # post-verify arbitration: a reverted winner can fall below
+                # a clean loser, so verify the others and take the best
+                best_total = _total(_exact_state(deformed)[0])
+                for vi, dd in enumerate(variants):
+                    if vi == pick:
+                        continue
+                    d2, g2 = verify.enforce_no_regression(
+                        grid_labels, dd, mask_nb4, cam_final_front,
+                        build_fn, zb_i=zb_i_shared, parts=present, device=device,
+                    )
+                    t2 = _total(_exact_state(g2)[0])
+                    if t2 > best_total:
+                        print(f"[stage3] {monument}: post-verify arbitration "
+                              f"flipped to {labels[vi]} "
+                              f"({t2:.3f} > {best_total:.3f})", file=sys.stderr)
+                        deforms, deformed, best_total = d2, g2, t2
+            deformed = deformed.cpu().numpy()
+    if out_dir is not None:
+        base = Path(out_dir) / "3.Part-wise_3D_Refinement"
+        save_voxel_grid(base / f"{monument}_deformed_voxel_grid.npz", deformed)
+        # the params round-trip through ``overrides`` for replay
+        with open(base / f"{monument}_deform_params.json", "w") as fh:
+            json.dump(deforms, fh, indent=2)
+    return deforms, deformed

@@ -29,6 +29,12 @@ MODULES = [
     "pbr3d_torch.camera.estimate",
     "pbr3d_torch.camera.align",
     "pbr3d_torch.eval.inter",
+    "pbr3d_torch.ops.point_table",
+    "pbr3d_torch.deform",
+    "pbr3d_torch.deform.warp",
+    "pbr3d_torch.deform.search",
+    "pbr3d_torch.deform.verify",
+    "pbr3d_torch.entry",
     "pbr3d_torch.pipeline",
     "chip_smoke",
 ]
