@@ -6,18 +6,24 @@
 Phases, each of which fails the script loudly (there is no CPU fallback):
 
 1. card and build: the card's name and power limit, and the build of the
-   hand-written CUDA kernels from ``pbr3d_torch/csrc`` into ``build/``;
+   hand-written CUDA kernels from ``pbr3d_torch/csrc`` into ``build/`` by
+   nvcc (its seconds, and ``-Xptxas -v``'s registers, shared memory and
+   spills; a spill fails the phase);
 2. kernel vs plain: ``min_dist2_kernel`` against ``min_dist2_plain`` on the
-   card, on seeded inputs at 777x1311, N < 32, M = 1, M = 0 and
-   50,000 x 50,000, with both times from CUDA events;
+   card, on seeded inputs at every shape of ``KERNEL_SHAPES`` (small,
+   degenerate and ragged shapes and the main path's 20k and 50k), each
+   output's sha256 held against the first design's; then at 20k and 50k the
+   kernel, the plain version and the ``torch.cdist`` yardstick timed by
+   CUDA events in turns, beside the bound, with the SM clock and power;
 3. stage 1 at 512 (Bibi): ``global_carve`` bit-exact against the reference
    oracle, ``carve_monument_fused`` bit-exact against the JAX package's grid
    in ``tests/fixtures/torch_port_Bibi_512.npz``; cold and warm times, peak
    device memory; the grid saved in the reference layout;
 4. notebook-5 metrics on the card: the stage-1 cloud against the committed
    stage-3 model — chamfer, F-score@τ and the F1 curve — held against the
-   fixture's float64 cKDTree values and its JAX values.  The kernel's launch
-   count over phases 3-4 must be positive;
+   fixture's float64 cKDTree values and its JAX values; the artifact's
+   decode time apart, and the kernel's device time under the profiler.  The
+   kernel's launch count over phases 3-4 must be positive;
 5. stage 2 at 512 (Bibi): camera estimation on phase 3's grid, for the
    front view and a planted drone view, at ``run_stage2``'s defaults
    (generations 40, population 64, cd_rounds 6, seed 0, with the retry
@@ -47,6 +53,7 @@ there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import re
@@ -96,7 +103,34 @@ KD_F_ATOL = 1e-3
 #: Port vs the JAX package: its |a|²+|b|²-2a·b form errs by ~8ε(|a|²+|b|²)
 #: per point (tests/test_eval.py:49).
 JAX_RTOL = 1e-2
-KERNEL_SHAPES = ((777, 1311), (19, 1000), (100, 1), (100, 0), (50000, 50000))
+#: (N, M) of the kernel checks: small and degenerate shapes, ragged ones (N
+#: not a multiple of a block's queries, M not a multiple of a chunk, N = 1,
+#: few queries against many points) and the two main-path shapes.
+KERNEL_SHAPES = ((777, 1311), (19, 1000), (100, 1), (100, 0), (1, 5000), (1025, 4097),
+                 (5, 100003), (20000, 20000), (50000, 50000))
+#: The main path's shapes: chamfer and F-score at 20k (four launches), the
+#: F1 curve at 50k (two).
+TIMED_SHAPES = ((20000, 20000), (50000, 50000))
+#: sha256 of the first design's output (one block per 256 queries, all of
+#: B in each block) at each of KERNEL_SHAPES on ``kernel_inputs``: min is
+#: exact, so every design of the same arithmetic must give these bytes.
+REFERENCE_SHA256 = {
+    (777, 1311): "4bb552e71919652abe92830a92fa98d257d2f2a2f6648920be344fac4c849e2f",
+    (19, 1000): "833c193f43c00e85d172268ceb62013b7ef82f214651cf441e6f354549b1cd8c",
+    (100, 1): "86843f6d424854a4f214e5cdc3c8a3fd2200f3c9197b54e54416359f3f0d7a2d",
+    (100, 0): "e338184703a3b370520834d1d2c6bfdeff58c8bf623cd94b6c21466f1ce5dbcb",
+    (1, 5000): "e260dceacc5557a0dbf8c8c0acad761e513199d466ffcf5f1dfbc014d04784ce",
+    (1025, 4097): "eb81fc040aee011766ab74b6668e799965f162edadff72e890e83abccee71830",
+    (5, 100003): "2787ee7835706b07e3faf34a4eee2e82ce09cec17d17c8211bc5b31e8ead817a",
+    (20000, 20000): "2f3d703da1137b48f5478bca77969da94ca310decf6ccd4c085c17be77405b8b",
+    (50000, 50000): "def4c870399f3879cfdd5fdc0dcac93bb7cd530b6b65c4a514234f3ada61a04c",
+}
+#: The bound counts FP32 instructions: 3 FSUB, 1 FMUL, 2 FFMA and 1 FMNMX
+#: per (a, b) pair, against the H100 SXM's 67 TFLOP/s float32 peak, which
+#: counts an FMA as two (33.5e12 instructions a second); bytes at 3.35 TB/s.
+PAIR_INSTRUCTIONS = 7
+FP32_INSTRUCTIONS_PER_S = 67e12 / 2
+HBM_BYTES_PER_S = 3.35e12
 
 FIXTURE2 = REPO / "tests/fixtures/torch_port_Bibi_512_stage2.npz"
 VIEWS = ("front", "drone")
@@ -148,38 +182,110 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_inputs(n: int, m: int):
+    """Seeded (n, 3) and (m, 3) float32 clouds, the same in every run."""
+    rng = np.random.default_rng([0, n, m])
+    return rng.normal(size=(n, 3)).astype(np.float32), rng.normal(size=(m, 3)).astype(np.float32)
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def min_dist2_bound(n: int, m: int):
+    """(least ms, "operations" or "bytes") of min_dist2 at n x m on an H100."""
+    ops_s = n * m * PAIR_INSTRUCTIONS / FP32_INSTRUCTIONS_PER_S
+    bytes_s = (12 * n + 12 * m + 4 * n) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def min_dist2_library(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """The yardstick: one PyTorch call for the same function (timed only)."""
+    return torch.cdist(A, B).amin(dim=1).square_()
+
+
+@contextlib.contextmanager
+def smi_samples(out: list):
+    """Appends (SM clock MHz, power W) samples of the card, every 50 ms,
+    while the block runs."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        for line in proc.communicate(timeout=10)[0].splitlines():
+            with contextlib.suppress(ValueError):
+                out.append(tuple(float(v) for v in line.split(",")[:2]))
+
+
+def smi_summary(samples: list) -> str:
+    if not samples:
+        return "clock/power not sampled"
+    clk, watts = np.array(samples).T
+    return (f"sm_clock_mhz min/median/max={clk.min():.0f}/{np.median(clk):.0f}/{clk.max():.0f} "
+            f"power_w min/median/max={watts.min():.1f}/{np.median(watts):.1f}/{watts.max():.1f} "
+            f"({len(samples)} samples)")
+
+
+def time_in_turns(fns: dict, reps: dict, order: list) -> dict:
+    """CUDA-event ms of each named function, taken in the given order of
+    names (e.g. a, b, b, a) after one warm-up call of each."""
+    for fn in fns.values():
+        fn()
+    times: dict = {name: [] for name in fns}
+    for name in order:
+        times[name].append(cuda_ms(fns[name], reps[name]))
+    return times
+
+
 def phase_kernel() -> dict:
-    rng = np.random.default_rng(0)
+    """The kernel against its plain version and the reference hashes at every
+    shape, then timed at the main-path shapes beside the plain version and
+    the library call."""
     max_abs = 0.0
     for n, m in KERNEL_SHAPES:
-        A = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).cuda()
-        B = torch.from_numpy(rng.normal(size=(m, 3)).astype(np.float32)).cuda()
+        A, B = (torch.from_numpy(x).cuda() for x in kernel_inputs(n, m))
         k = min_dist2_kernel(A, B)
         p = min_dist2_plain(A, B)
         torch.cuda.synchronize()
         check(k.shape == (n,) and k.dtype == torch.float32, f"kernel output {k.shape} {k.dtype}")
+        digest = sha256(k)
+        same = digest == REFERENCE_SHA256.get((n, m))
         if m == 0:
             check(bool(torch.isinf(k).all()) and bool((k > 0).all()), "M = 0 must give +inf")
-            log(f"kernel_vs_plain {n}x{m}: all +inf")
-            continue
-        check(bool(torch.isfinite(k).all()), f"non-finite kernel output at {n}x{m}")
-        err = (k - p).abs()
-        rel = float((err / p.abs().clamp_min(1e-30)).max())
-        max_abs = max(max_abs, float(err.max()))
-        log(f"kernel_vs_plain {n}x{m}: max_abs_err={float(err.max()):.3e} "
-            f"max_rel_err={rel:.3e} tol_rel={KERNEL_RTOL:g}")
-        check(rel <= KERNEL_RTOL, f"kernel disagrees with plain at {n}x{m}: rel {rel}")
+            log(f"kernel_vs_plain {n}x{m}: all +inf sha256_equal={same}")
+        else:
+            check(bool(torch.isfinite(k).all()), f"non-finite kernel output at {n}x{m}")
+            err = (k - p).abs()
+            rel = float((err / p.abs().clamp_min(1e-30)).max())
+            max_abs = max(max_abs, float(err.max()))
+            log(f"kernel_vs_plain {n}x{m}: max_abs_err={float(err.max()):.3e} "
+                f"max_rel_err={rel:.3e} tol_rel={KERNEL_RTOL:g} sha256_equal={same}")
+            check(rel <= KERNEL_RTOL, f"kernel disagrees with plain at {n}x{m}: rel {rel}")
+        check(same, f"kernel output at {n}x{m} hashes {digest}, not the reference design's")
 
-    A = torch.from_numpy(rng.normal(size=(50000, 3)).astype(np.float32)).cuda()
-    B = torch.from_numpy(rng.normal(size=(50000, 3)).astype(np.float32)).cuda()
-    for _ in range(2):  # warm-up
-        min_dist2_kernel(A, B)
-        min_dist2_plain(A, B)
-    plain = [cuda_ms(lambda: min_dist2_plain(A, B), 3)]
-    kern = [cuda_ms(lambda: min_dist2_kernel(A, B), 20) for _ in range(2)]
-    plain.append(cuda_ms(lambda: min_dist2_plain(A, B), 3))
-    log(f"min_dist2 50000x50000: kernel_ms={kern} plain_ms={plain}")
-    return {"max_abs_err": max_abs, "ms": float(np.mean(kern)), "plain_ms": float(np.mean(plain))}
+    out = {"max_abs_err": max_abs}
+    for n, m in TIMED_SHAPES:
+        A, B = (torch.from_numpy(x).cuda() for x in kernel_inputs(n, m))
+        samples: list = []
+        with smi_samples(samples):
+            t = time_in_turns(
+                {"plain": lambda: min_dist2_plain(A, B), "kernel": lambda: min_dist2_kernel(A, B),
+                 "library": lambda: min_dist2_library(A, B)},
+                {"plain": 3, "kernel": 20 if n * m > 1e9 else 50, "library": 3},
+                ["plain", "kernel", "library", "library", "kernel", "plain"])
+        torch.cuda.empty_cache()
+        bound, bound_by = min_dist2_bound(n, m)
+        ms, plain_ms, library_ms = (float(np.mean(t[k])) for k in ("kernel", "plain", "library"))
+        log(f"min_dist2 {n}x{m}: kernel_ms={t['kernel']} plain_ms={t['plain']} "
+            f"library_ms={t['library']} bound_ms={bound:.4f} ({bound_by}) "
+            f"share_of_bound={bound / ms:.3f}; {smi_summary(samples)}")
+        tag = "" if (n, m) == TIMED_SHAPES[-1] else f"_{n // 1000}k"
+        out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": bound,
+                    f"library_ms{tag}": library_ms, "bound_by": bound_by})
+    return out
 
 
 def phase_stage1(fx) -> np.ndarray:
@@ -212,17 +318,28 @@ def phase_stage1(fx) -> np.ndarray:
     return grid
 
 
-def phase_metrics(fx, grid: np.ndarray) -> None:
+def phase_metrics(fx, grid: np.ndarray) -> int:
+    """The notebook-5 metrics of the stage-1 cloud against the committed
+    stage-3 model, held against cKDTree and JAX; then the metrics once more
+    under the profiler for the kernel's device time.  Returns the kernel's
+    launches up to the end of the first run."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    model = load_voxel_grid_labels(STAGE3)
+    decode = time.perf_counter() - t0
     A = inter.normalize_preserve_aspect(all_points(grid, device="cuda")[0], device="cuda")
-    B = inter.normalize_preserve_aspect(
-        all_points(load_voxel_grid_labels(STAGE3), device="cuda")[0], device="cuda")
-    chamfer = inter.chamfer_distance(A, B, device="cuda")
-    fscore = np.asarray(inter.fscore_with_threshold(A, B, float(fx["tau"]), device="cuda"))
-    curve = np.stack(inter.compute_f1_curve(A, B, fx["thresholds"], device="cuda"))
+    B = inter.normalize_preserve_aspect(all_points(model, device="cuda")[0], device="cuda")
+
+    def metrics():
+        return (inter.chamfer_distance(A, B, device="cuda"),
+                np.asarray(inter.fscore_with_threshold(A, B, float(fx["tau"]), device="cuda")),
+                np.stack(inter.compute_f1_curve(A, B, fx["thresholds"], device="cuda")))
+
+    chamfer, fscore, curve = metrics()
     secs = time.perf_counter() - t0
-    log(f"metrics: clouds {tuple(A.shape)} vs {tuple(B.shape)}, {secs:.3f} s")
+    launches = min_dist2_kernel.launches
+    log(f"metrics: clouds {tuple(A.shape)} vs {tuple(B.shape)}, {secs:.3f} s "
+        f"(of it {decode:.3f} s decoding the stage-3 artifact)")
     log(f"metrics: chamfer={chamfer!r} kd={float(fx['kd_chamfer'])!r} jax={float(fx['jax_chamfer'])!r}")
     log(f"metrics: fscore(f1,p,r)={fscore.tolist()} kd={fx['kd_fscore'].tolist()} "
         f"jax={fx['jax_fscore'].tolist()}")
@@ -236,6 +353,12 @@ def phase_metrics(fx, grid: np.ndarray) -> None:
           "chamfer vs JAX")
     check(np.allclose(fscore, fx["jax_fscore"], rtol=JAX_RTOL, atol=0), "F-score vs JAX")
     check(np.allclose(curve, fx["jax_f1_curve"], rtol=JAX_RTOL, atol=0), "F1 curve vs JAX")
+
+    wall, busy, top = _device_profile(metrics)
+    mine = [(ms, k) for name, ms, k in top if "min_dist2" in name]
+    log(f"metrics profiled (decode and points excluded): wall_s={wall:.4f} device_busy_s={busy:.4f} "
+        f"min_dist2 device_ms={sum(ms for ms, _ in mine):.4f} over {sum(k for _, k in mine)} launches")
+    return launches
 
 
 def _device_profile(fn):
@@ -570,16 +693,20 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    load_extension()
-    log(f"kernel build+load: {time.perf_counter() - t0:.1f} s")
+    lib = load_extension()
+    log(f"kernel build+load: {time.perf_counter() - t0:.2f} s")
+    for ln in lib.build_log.splitlines():
+        log(f"  {ln.strip()}")
+    spills = [ln for ln in lib.build_log.splitlines() if "spill" in ln]
+    check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+          f"the kernel spills registers: {spills}")
 
     kernel = phase_kernel()
 
     fx = np.load(FIXTURE)
     min_dist2_kernel.launches = 0  # count the main path only
     grid = phase_stage1(fx)
-    phase_metrics(fx, grid)
-    launches = min_dist2_kernel.launches
+    launches = phase_metrics(fx, grid)
     check(launches > 0, "the metrics never launched the min-dist kernel")
     fx2 = np.load(FIXTURE2)
     phase_stage2(fx2, grid)

@@ -1,31 +1,48 @@
 // Nearest-neighbour squared distance: out[i] = min_j |A[i] - B[j]|^2, float32.
 //
-// Replaces the TPU kernel pbr3d/ops/pallas_kernels.py::_min_dist2_kernel
+// Replaces the TPU kernel pbr3d/ops/pallas_kernels.py:30 _min_dist2_kernel
 // (driven by _min_dist2_call, wrapped by min_dist2_pallas), the engine behind
 // the notebook-5 chamfer, F-score and F1-curve metrics.
 //
-// What bounds it on an H100: FP32 instruction throughput.  Each (a, b) pair
-// costs 3 FSUB, 1 FMUL, 2 FFMA and 1 FMNMX -- about 8 flops -- and reads
-// 12 bytes of B.
-// The design keeps those reads off device memory: each block owns a strip
-// of queries (kQueriesPerThread per thread, running minima in registers)
-// and streams all of B through shared memory in tiles of kTileB points,
-// stored as float4 so one 16-byte broadcast load serves every query a
-// thread holds.  The loop over B tiles takes the place of the TPU grid's
-// sequential B axis; blocks are independent, so no atomics and no second
-// pass are needed.  Padding B with +inf (the TPU kernel's `pen`) is not
-// needed either: the tail tile is simply shorter, and M = 0 leaves +inf.
+// What bounds it on an H100: FP32 issue slots.  Each (a, b) pair costs
+// 3 FSUB, 1 FMUL, 2 FFMA and 1 FMNMX, 7 warp-lane instructions, and an SM
+// issues 4 x 32 of them a clock: 0.523 ms at 50,000 x 50,000, 0.084 ms at
+// 20,000 x 20,000.  Bytes are negligible (12 per point).  What the design
+// does about it:
 //
-// Deliberate difference from the TPU kernel: the distance is the direct
-// difference dx^2 + dy^2 + dz^2 (FMAs), not the |a|^2 + |b|^2 - 2 a.b
-// expansion.  K = 3 gives tensor cores nothing to do, and the direct form
-// avoids the expansion's cancellation: its error is a few ulp of the
-// distance itself, where the TPU form's is about 8 eps (|a|^2 + |b|^2) per
-// point.  That TPU error is what sets the tolerance against the JAX package.
+// * Enough blocks to fill the card.  The grid is query tiles x B chunks;
+//   the wrapper's launch plan (ops/cuda_kernels.py::_launch_plan) picks the
+//   chunk count from the SM count and this kernel's resident blocks per SM
+//   so that the last wave is nearly full.  Chunk minima merge with
+//   atomicMin on the int bits of the non-negative float32 result, whose
+//   int order is its float order, into an output the wrapper fills with
+//   +inf.  Min is exact and order-free, so the result does not depend on
+//   which chunk lands first.
+// * Little else to issue.  Each thread keeps kQueries queries and their
+//   running minima in registers; one broadcast 16-byte shared load of a B
+//   point feeds kQueries pairs (56 FP32 instructions), and the B loop is
+//   unrolled kUnroll deep, so the kQueries independent min chains hide the
+//   FMA latency.
+// * Loads off the critical path.  B is packed once per call into float4
+//   (w = 0), padded with +inf points to a multiple of kUnroll; a block's
+//   chunk streams through two shared tiles with 16-byte cp.async, the next
+//   tile in flight while the current one is consumed.
+// * Few launches.  One small kernel packs B into the wrapper's scratch and
+//   fills the output with +inf, so a call is two launches; done with
+//   PyTorch ops, the same work took four, which cost ~10 % at 20k.
 //
-// Plain C++ interface, no PyTorch headers: the binding in
-// min_dist2_bind.cpp checks the tensors, picks the stream and checks the
-// launch.
+// The arithmetic is the first design's, exactly: dx = ax - bx etc., then
+// fmaf(dz, dz, fmaf(dy, dy, dx * dx)), folded by fminf.  So the output is
+// bit-identical to it.  It is the direct difference, not the TPU kernel's
+// |a|^2 + |b|^2 - 2 a.b: K = 3 gives tensor cores nothing to do, and the
+// direct form errs by a few ulp of the distance, where the expansion errs
+// by about 8 eps (|a|^2 + |b|^2), which sets the tolerance against the JAX
+// package.
+//
+// Plain C interface, no PyTorch headers: built by nvcc into a shared
+// library and called through ctypes (ops/cuda_kernels.py), which checks the
+// tensors, allocates the output, passes the current stream and raises on a
+// non-zero return.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,21 +50,42 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kQueriesPerThread = 2;
-constexpr int kTileB = 1024;
+constexpr int kQueries = 8;  // per thread
+constexpr int kQueriesPerBlock = kThreads * kQueries;
+constexpr int kTile = 512;   // B points per shared tile (8 KB)
+constexpr int kUnroll = 8;   // B points per step; chunks and tiles are multiples of it
 
-__global__ void __launch_bounds__(kThreads)
-min_dist2_kernel(const float* __restrict__ A, int64_t n,
-                 const float* __restrict__ B, int64_t m,
-                 float* __restrict__ out) {
-  __shared__ float4 tile[kTileB];
+__device__ __forceinline__ void copy_async(float4* dst, const float4* src, int count) {
+  for (int t = threadIdx.x; t < count; t += kThreads) {
+    const unsigned int s = static_cast<unsigned int>(__cvta_generic_to_shared(dst + t));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + t));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * (kThreads * kQueriesPerThread)
-                        + threadIdx.x;
-  float ax[kQueriesPerThread], ay[kQueriesPerThread], az[kQueriesPerThread];
-  float best[kQueriesPerThread];
+constexpr int kPackThreads = 256;
+
+// B4[i] = (B[i], 0) for i < m and +inf points up to m_pad; out[i] = +inf.
+__global__ void __launch_bounds__(kPackThreads)
+pack_kernel(const float* __restrict__ B, int64_t m, int64_t m_pad, float4* __restrict__ B4,
+            float* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPackThreads + threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  if (i < m_pad)
+    B4[i] = i < m ? make_float4(B[3 * i], B[3 * i + 1], B[3 * i + 2], 0.f)
+                  : make_float4(inf, inf, inf, inf);
+  if (i < n) out[i] = inf;
+}
+
+__global__ void __launch_bounds__(kThreads, 4)
+min_dist2_kernel(const float* __restrict__ A, int64_t n, const float4* __restrict__ B4,
+                 int64_t m_pad, int64_t chunk_len, int* __restrict__ out_bits) {
+  __shared__ __align__(16) float4 tile[2][kTile];
+
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kQueriesPerBlock + threadIdx.x;
+  float ax[kQueries], ay[kQueries], az[kQueries], best[kQueries];
 #pragma unroll
-  for (int q = 0; q < kQueriesPerThread; ++q) {
+  for (int q = 0; q < kQueries; ++q) {
     const int64_t i = first + static_cast<int64_t>(q) * kThreads;
     const bool ok = i < n;
     ax[q] = ok ? A[3 * i + 0] : 0.f;
@@ -56,42 +94,88 @@ min_dist2_kernel(const float* __restrict__ A, int64_t n,
     best[q] = __int_as_float(0x7f800000);  // +inf
   }
 
-  for (int64_t j0 = 0; j0 < m; j0 += kTileB) {
-    const int count = static_cast<int>(m - j0 < kTileB ? m - j0 : kTileB);
-    __syncthreads();  // the previous tile has been consumed
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      const float* b = B + 3 * (j0 + t);
-      tile[t] = make_float4(b[0], b[1], b[2], 0.f);
+  const int64_t j0 = static_cast<int64_t>(blockIdx.y) * chunk_len;
+  const int len = static_cast<int>(m_pad - j0 < chunk_len ? m_pad - j0 : chunk_len);
+  const int tiles = (len + kTile - 1) / kTile;
+  copy_async(tile[0], B4 + j0, len < kTile ? len : kTile);
+  for (int k = 0; k < tiles; ++k) {
+    const int rest = len - k * kTile;
+    if (k + 1 < tiles) {
+      const int next = rest - kTile;
+      copy_async(tile[(k + 1) & 1], B4 + j0 + static_cast<int64_t>(k + 1) * kTile,
+                 next < kTile ? next : kTile);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
-    __syncthreads();
-    for (int t = 0; t < count; ++t) {
-      const float4 b = tile[t];
+    __syncthreads();  // tile k has landed for every thread
+    const float4* b = tile[k & 1];
+    const int count = rest < kTile ? rest : kTile;
+    for (int t = 0; t < count; t += kUnroll) {
 #pragma unroll
-      for (int q = 0; q < kQueriesPerThread; ++q) {
-        const float dx = ax[q] - b.x;
-        const float dy = ay[q] - b.y;
-        const float dz = az[q] - b.z;
-        best[q] = fminf(best[q], fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
+      for (int u = 0; u < kUnroll; ++u) {
+        const float4 p = b[t + u];
+#pragma unroll
+        for (int q = 0; q < kQueries; ++q) {
+          const float dx = ax[q] - p.x;
+          const float dy = ay[q] - p.y;
+          const float dz = az[q] - p.z;
+          best[q] = fminf(best[q], fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
+        }
       }
     }
+    __syncthreads();  // tile k is consumed before the prefetch of tile k + 2 overwrites it
   }
 
 #pragma unroll
-  for (int q = 0; q < kQueriesPerThread; ++q) {
+  for (int q = 0; q < kQueries; ++q) {
     const int64_t i = first + static_cast<int64_t>(q) * kThreads;
-    if (i < n) out[i] = best[q];
+    if (i < n) atomicMin(out_bits + i, __float_as_int(best[q]));
   }
 }
 
 }  // namespace
 
-// Launches on `stream` without synchronising; the caller checks
-// cudaGetLastError().  A (n, 3), B (m, 3) and out (n,) are contiguous
-// float32 device buffers; n > 0.
-void pbr3d_min_dist2_launch(const float* A, int64_t n, const float* B, int64_t m,
-                            float* out, cudaStream_t stream) {
-  const int64_t per_block = kThreads * kQueriesPerThread;
-  const int64_t blocks = (n + per_block - 1) / per_block;
-  min_dist2_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      A, n, B, m, out);
+extern "C" {
+
+// Queries one block covers; the wrapper's launch plan must agree.
+int pbr3d_min_dist2_queries_per_block() { return kQueriesPerBlock; }
+
+// B points per step: the padding and chunk granularity the kernel needs.
+int pbr3d_min_dist2_b_step() { return kUnroll; }
+
+// Resident blocks per SM on the current device, into *blocks.
+int pbr3d_min_dist2_blocks_per_sm(int* blocks) {
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, min_dist2_kernel, kThreads, 0));
 }
+
+// Launches the pack and the min-dist kernel on `stream` without
+// synchronising and returns cudaGetLastError().  A (n, 3) and B (m, 3)
+// float32, n > 0, m > 0; B4 scratch for (m_pad, 4) float32, m_pad = m rounded
+// up to a multiple of kUnroll; chunk_len a positive multiple of kUnroll;
+// out (n,) float32.
+int pbr3d_min_dist2(const float* A, int64_t n, const float* B, int64_t m, float* B4,
+                    int64_t m_pad, int64_t chunk_len, float* out, cudaStream_t stream) {
+  const int64_t query_tiles = (n + kQueriesPerBlock - 1) / kQueriesPerBlock;
+  const int64_t chunks = chunk_len > 0 ? (m_pad + chunk_len - 1) / chunk_len : 0;
+  const int64_t pack_blocks = ((n > m_pad ? n : m_pad) + kPackThreads - 1) / kPackThreads;
+  if (n <= 0 || m <= 0 || m_pad % kUnroll || m_pad < m || m_pad - m >= kUnroll ||
+      chunk_len <= 0 || chunk_len % kUnroll || chunk_len > 0x7fffffff ||
+      query_tiles > 0x7fffffff || pack_blocks > 0x7fffffff || chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float4* b4 = reinterpret_cast<float4*>(B4);
+  pack_kernel<<<static_cast<unsigned int>(pack_blocks), kPackThreads, 0, stream>>>(
+      B, m, m_pad, b4, out, n);
+  const dim3 grid(static_cast<unsigned int>(query_tiles), static_cast<unsigned int>(chunks));
+  min_dist2_kernel<<<grid, kThreads, 0, stream>>>(A, n, b4, m_pad, chunk_len,
+                                                  reinterpret_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The message of a CUDA error code.
+const char* pbr3d_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

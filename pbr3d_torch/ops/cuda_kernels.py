@@ -3,42 +3,139 @@
 
 ``min_dist2_kernel`` replaces ``pbr3d.ops.pallas_kernels._min_dist2_kernel``
 (see ``pbr3d_torch/csrc/min_dist2.cu`` for its design).  The kernels are
-built from ``pbr3d_torch/csrc/`` at first use, with nvcc for ``sm_90a``,
-into ``build/torch_kernels/`` at the root of the checkout, and bound with
-``torch.utils.cpp_extension.load``.  Nothing is built or imported from
-the CUDA toolchain when this module is imported.
+built from ``pbr3d_torch/csrc/`` at first use by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface, under
+``build/torch_kernels/`` at the root of the checkout, and called through
+``ctypes``.  The library is rebuilt only when a hash of the sources and
+flags changes.  Nothing is built or loaded when this module is imported.
 
 Beside each kernel sits its plain PyTorch version, which the CPU tests use
 and the on-card smoke compares the kernel against.  The kernel wrapper
-accepts CUDA tensors only and raises on anything else; choosing the plain
-version for CPU tensors is :func:`pbr3d_torch.ops.neighbors.min_dist2`'s job.
+accepts CUDA tensors only and raises on anything else, and on a failed
+build or launch; choosing the plain version for CPU tensors is
+:func:`pbr3d_torch.ops.neighbors.min_dist2`'s job.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import hashlib
+import os
+import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_SOURCES = ("min_dist2.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: Queries one block of the kernel covers (128 threads x 8 queries), and the
+#: B points per step of its loop; the library is checked against both.
+QUERIES_PER_BLOCK = 1024
+B_STEP = 8
+#: Launch-plan limits: B points per chunk at the least, chunks at the most
+#: (the grid's y dimension), and the share of the last wave's slots a plan
+#: should fill.
+MIN_CHUNK = 64
+MAX_CHUNKS = 65535
+WAVE_FILL = 0.97
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
 @functools.cache
-def load_extension():
-    """Build (first call) and load the kernels' extension module.  Raises if
-    the toolchain is missing or the build fails."""
-    from torch.utils.cpp_extension import load
+def load_extension() -> ctypes.CDLL:
+    """Build (when the sources changed) and load the kernels' library.
+    Raises if ``nvcc`` is missing or the build fails.  The compiler's output,
+    ``-Xptxas -v``'s registers, shared memory and spills included, is in the
+    returned library's ``build_log``."""
+    from torch.utils.cpp_extension import CUDA_HOME
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    return load(
-        name="pbr3d_torch_kernels",
-        sources=[str(_CSRC / "min_dist2_bind.cpp"), str(_CSRC / "min_dist2.cu")],
-        build_directory=str(BUILD_DIR),
-        extra_cflags=["-O2"],
-        extra_cuda_cflags=["-O3", "-gencode=arch=compute_90a,code=sm_90a"],
-    )
+    sources = [_CSRC / s for s in _SOURCES]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        digest.update(src.read_bytes())
+    lib_path = BUILD_DIR / f"pbr3d_kernels_{digest.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
+    if not lib_path.exists():
+        if CUDA_HOME is None:
+            raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        res = subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
+                              *map(str, sources)], capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"nvcc failed with {res.returncode}:\n{res.stdout}{res.stderr}")
+        log_path.write_text(res.stdout + res.stderr)
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.pbr3d_min_dist2.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P]
+    lib.pbr3d_min_dist2.restype = _I32
+    lib.pbr3d_min_dist2_blocks_per_sm.argtypes = [ctypes.POINTER(_I32)]
+    lib.pbr3d_min_dist2_blocks_per_sm.restype = _I32
+    lib.pbr3d_cuda_error_string.argtypes = [_I32]
+    lib.pbr3d_cuda_error_string.restype = ctypes.c_char_p
+    got = (lib.pbr3d_min_dist2_queries_per_block(), lib.pbr3d_min_dist2_b_step())
+    if got != (QUERIES_PER_BLOCK, B_STEP):
+        raise RuntimeError(f"{lib_path.name}: queries per block and B step {got}, "
+                           f"expected {(QUERIES_PER_BLOCK, B_STEP)}")
+    lib.build_log = log_path.read_text() if log_path.exists() else ""
+    return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        msg = load_extension().pbr3d_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+class LaunchPlan(NamedTuple):
+    query_tiles: int  # grid x: blocks of QUERIES_PER_BLOCK queries
+    chunk_len: int    # B points per chunk, a multiple of B_STEP
+    chunks: int       # grid y: chunks of B
+    m_pad: int        # B points after padding to a multiple of B_STEP
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(n: int, m: int, sm_count: int, blocks_per_sm: int) -> LaunchPlan:
+    """Grid of the min-dist kernel for n queries and m > 0 points of B.
+
+    Takes the fewest chunks whose grid fills at least ``WAVE_FILL`` of the
+    card's slots (SMs x resident blocks per SM) over its waves, counting a
+    chunk shorter than ``chunk_len`` as idle slots; where none does (small
+    problems), the chunking that fills most."""
+    tiles = -(-n // QUERIES_PER_BLOCK)
+    m_pad = -(-m // B_STEP) * B_STEP
+    slots = sm_count * blocks_per_sm
+    best_fill, best = -1.0, None
+    for c in range(1, max(1, min(MAX_CHUNKS, m_pad // MIN_CHUNK)) + 1):
+        chunk_len = -(-(-(-m_pad // c)) // B_STEP) * B_STEP  # ceil(m_pad / c), up to B_STEP
+        chunks = -(-m_pad // chunk_len)
+        waves = -(-tiles * chunks // slots)
+        fill = tiles * m_pad / (waves * slots * chunk_len)
+        plan = LaunchPlan(tiles, chunk_len, chunks, m_pad)
+        if fill >= WAVE_FILL:
+            return plan
+        if fill > best_fill:
+            best_fill, best = fill, plan
+    return best
+
+
+@functools.cache
+def _card_slots(index: int) -> tuple:
+    """(SMs, resident blocks of the min-dist kernel per SM) of a card."""
+    lib = load_extension()
+    blocks = _I32(0)
+    with torch.cuda.device(index):
+        _raise_on(lib.pbr3d_min_dist2_blocks_per_sm(ctypes.byref(blocks)), "occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError("the min-dist kernel fits no block on an SM")
+    return torch.cuda.get_device_properties(index).multi_processor_count, blocks.value
 
 
 def _check_points(t: torch.Tensor, name: str) -> None:
@@ -55,14 +152,23 @@ def _check_points(t: torch.Tensor, name: str) -> None:
 def min_dist2_kernel(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """min_j |A[i] - B[j]|² for A (N, 3), B (M, 3) contiguous float32 CUDA
     tensors on one device; (N,) float32, +inf where M = 0.  Launches on the
-    current stream without synchronising; N = 0 launches nothing."""
+    current stream without synchronising; N = 0 or M = 0 launches nothing."""
     _check_points(A, "A")
     _check_points(B, "B")
     if A.device != B.device:
         raise ValueError(f"A is on {A.device}, B on {B.device}")
-    if A.shape[0] == 0:
-        return torch.empty((0,), dtype=torch.float32, device=A.device)
-    out = load_extension().min_dist2(A, B)
+    n, m = A.shape[0], B.shape[0]
+    if n == 0 or m == 0:
+        return torch.full((n,), float("inf"), dtype=torch.float32, device=A.device)
+    lib = load_extension()
+    plan = _launch_plan(n, m, *_card_slots(A.device.index))
+    out = torch.empty((n,), dtype=torch.float32, device=A.device)
+    B4 = torch.empty((plan.m_pad, 4), dtype=torch.float32, device=A.device)  # packed by the call
+    with torch.cuda.device(A.device):
+        err = lib.pbr3d_min_dist2(A.data_ptr(), n, B.data_ptr(), m, B4.data_ptr(), plan.m_pad,
+                                  plan.chunk_len, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "min_dist2 launch")
     min_dist2_kernel.launches += 1
     return out
 

@@ -1,5 +1,7 @@
-"""pbr3d_torch and chip_smoke import with jax and cv2 unavailable (the card's
-machine has neither), and build no kernel on import."""
+"""pbr3d_torch and chip_smoke import with jax, cv2 and the JAX package
+unavailable (the card's machine has neither jax nor cv2, and the port keeps
+its own copies of what it needs from ``pbr3d``), and build no kernel on
+import."""
 
 import subprocess
 import sys
@@ -43,9 +45,10 @@ _PROBE = f"""
 import importlib, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
+sys.modules["pbr3d"] = None
 for name in {MODULES!r}:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "pbr3d")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 from pbr3d_torch.ops.cuda_kernels import load_extension
@@ -55,6 +58,8 @@ print("ok")
 
 
 def test_port_imports_without_jax_and_cv2():
+    """Also without ``pbr3d``: no ``pbr3d.*`` module is loaded after every
+    port module and ``chip_smoke`` are imported."""
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
         timeout=120,
