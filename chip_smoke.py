@@ -42,10 +42,26 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    ``run_stage3_body`` at its golden defaults (both profiles, both
    schedules, the exact nb4 verify), whose picked nb4 total, cells, whole
    IoU and mean part IoU are gated and whose artifacts are read back; cold
-   and warm wall, peak device memory, the ``[prof]`` phases, and the
-   profiler's device-busy share and top kernels.
+   and second-run wall, peak device memory, the ``[prof]`` phases, and the
+   profiler's device-busy share and top kernels;
+7. the study: ``run_all_body(strict=True)`` over the five monuments, on the
+   masks of ``tests/fixtures/torch_port_study.npz`` (stage 1's front planes
+   recovered from the committed stage-1 grids; a planted front and a
+   planted drone view each for stages 2 and 3), (a) at
+   golden resolution (512; Akbar 128) with nothing else set, so the deep
+   polish and stage 3's golden portfolio run, and (b) at 256 with the study
+   bench's knobs (stage 2 at generations 12 and population 192, stage 3 at
+   search stride 8).  Each stage-1 grid's sha256 and label counts are held
+   against the JAX package's ``carve_monuments_batched`` on the same masks
+   and against the port's per-scene route; every final camera's IoU is
+   re-scored on the search objective; the three bench gates (stage-1 IoU
+   against the committed golden grid, stage-3 whole IoU, mean part IoU), the
+   nb4 cells and the artifacts are checked per monument.  It reports each
+   call's wall, the ``[prof]`` phases, peak device memory, both carve routes'
+   times and peaks, and for (b) the profiler's device-busy share.
 
-The last two lines are the kernels' JSON record and the result line
+``python3 chip_smoke.py study`` runs the build and phase 7 alone and prints
+no result line.  The last two lines are the kernels' JSON record and the result line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 there is no CUDA device or any check fails.
 """
@@ -68,25 +84,27 @@ import numpy as np
 import torch
 
 from pbr3d_torch import config, pipeline
-from pbr3d_torch.camera.align import _batch_iou, evaluate_camera_iou, mask_labels_selected
+from pbr3d_torch.camera.align import (
+    _batch_iou, evaluate_camera_iou, mask_labels_selected, refine_cameras_batched,
+)
 from pbr3d_torch.camera.estimate import (
     auto_compute_initial_params_matching_bbox,
     optimize_camera_with_keypoints,
 )
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
-from pbr3d_torch.carving.fused import carve_monument_fused
+from pbr3d_torch.carving.fused import _sweep_working_set, carve_monument_fused, carve_monuments_batched
 from pbr3d_torch.carving.stage1 import global_carve
 from pbr3d_torch.carving.voxel import all_points, surface_points_by_parts
 from pbr3d_torch.config import rgb_to_labels
 from pbr3d_torch.deform import search, verify
 from pbr3d_torch.deform.warp import build_deformed_grid_fused
-from pbr3d_torch.eval import inter
+from pbr3d_torch.eval import gates, inter
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels, save_voxel_grid
-from pbr3d_torch.io.masks import MaskSet, compute_binary_gt
+from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.ops.cuda_kernels import load_extension, min_dist2_kernel, min_dist2_plain
 from pbr3d_torch.ops.point_table import build_point_table
-from pbr3d_torch.pipeline import ALIGN_PARTS, run_stage2_views, run_stage3_body
+from pbr3d_torch.pipeline import ALIGN_PARTS, SceneMasks, run_all_body, run_stage2_views, run_stage3_body
 from pbr3d_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent
@@ -153,9 +171,19 @@ COMP_ATOL = 1e-3
 NB4_TOTAL_ATOL = 0.01
 #: ``enforce_no_regression``'s own tolerances (parts 1e-6).
 NB4_TOL = {"whole": 0.01, "minarets": 0.005}
-#: bench.py:72-74.
-STAGE3_WHOLE_IOU_MIN = 0.80
-STAGE3_MEAN_PART_IOU_MIN = 0.50
+
+STUDY = REPO / "tests/fixtures/torch_port_study.npz"
+#: Phase 7's two configurations: what ``run_all_body`` is given, and the
+#: committed results of the JAX package at that resolution.
+STUDY_RUNS = {
+    "golden": dict(results=REPO / "results_temp_golden", kw=dict(max_dim=None)),
+    "256": dict(results=REPO / "results_temp", kw=dict(
+        max_dim=256, stage2_kw=dict(generations=12, population=192, seed=0),
+        stage3_kw=dict(search_stride=8))),
+}
+#: Bibi's final front IoU in the golden study may end this far below the
+#: serial stage 2's of phase 5 (another search schedule on the same view).
+STUDY_FRONT_IOU_ATOL = 0.01
 
 
 class SmokeFailure(RuntimeError):
@@ -363,30 +391,37 @@ def phase_metrics(fx, grid: np.ndarray) -> int:
 
 def _device_profile(fn):
     """(wall s, device-busy s, top kernels [(name, ms, launches)]) of ``fn()``
-    under ``torch.profiler``: busy is the union of the kernels' intervals."""
+    under ``torch.profiler``: busy is the union of the kernels' intervals.
+    Only the device is traced (a long multi-threaded run's host events are
+    many and are not read here)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy, end = 0.0, -float("inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        busy += max(0.0, b - max(a, end))
+    # the trace's own records, not ``prof.events()``: building the event tree
+    # of a study's ~1.5 M launches takes minutes, and only the device
+    # intervals are read here
+    kernels = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    busy, end = 0, -1
+    for a, b, _ in sorted(kernels):
+        busy += max(0, b - max(a, end))
         end = max(end, b)
     by_name: dict = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    for a, b, name in kernels:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e6, n + 1)
     top = sorted(((k, *v) for k, v in by_name.items()), key=lambda r: -r[1])[:8]
-    return wall, busy / 1e6, top
+    return wall, busy / 1e9, top
 
 
-def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> None:
+def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> dict:
+    """Returns the final IoU per view of the body as a user runs it."""
     views = {v: fx2[f"{v}_mask"] for v in VIEWS}
     draws = {s: fx2[f"draws_{s}"] for s in (0, 1, 3)}
     ids = config.part_ids(ALIGN_PARTS)
@@ -491,6 +526,7 @@ def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> None:
                 keys = ["cam_pos", "target", "f", "cx", "cy"] + (["H", "W"] if tag == "final" else [])
                 check(list(raw[v]) == keys, f"{tag}/{v} JSON keys {list(raw[v])}")
         log("stage2 artifacts: init/kp/final camera JSONs saved and read back in the reference layout")
+    return out["ious"]
 
 
 def _unequal(ours: np.ndarray, ref: np.ndarray):
@@ -637,13 +673,14 @@ def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
     for name, (secs, n) in sorted(_prof_totals(text).items(), key=lambda kv: -kv[1][0]):
         log(f"stage3 [prof] {secs:9.2f} s  x{n:<5d} {name}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    warm_deforms, warm_grid = body()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    log(f"stage3 body cold_s={cold:.3f} warm_s={warm:.3f} peak_mem_bytes={peak}")
-    check(warm_deforms == deforms and np.array_equal(warm_grid, deformed),
+    # the second run of the body, under the profiler
+    second: dict = {}
+    wall, busy, top = _device_profile(lambda: second.update(zip(("deforms", "grid"), body())))
+    log(f"stage3 body cold_s={cold:.3f} peak_mem_bytes={peak}; second run, profiled: "
+        f"wall_s={wall:.3f} device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
+    for name, ms, n in top:
+        log(f"stage3   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+    check(second["deforms"] == deforms and np.array_equal(second["grid"], deformed),
           "a second run of the body gave other deforms")
 
     moved = [p for p in final if not np.array_equal(search._deform_vec(deforms[p]["deform"]), final[p])]
@@ -661,24 +698,237 @@ def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
     regressed = [k for k, (a, b) in cells.items() if b + NB4_TOL.get(k, 1e-6) < a]
     check(not regressed, f"nb4 cells regressed: {regressed}")
 
-    ids = set(torch.unique(torch.as_tensor(deformed, device=device)).cpu().tolist())
-    names = [p for p, i in config.PART_IDS.items() if 0 < i < 10 and i in ids]
-    zbs = verify._part_zbufs_grid(deformed, cam, H, W, names, device=device)
-    pr = np.isfinite(np.minimum.reduce(list(zbs.values())))[:H, :W]
-    whole = verify._iou_bool_np(compute_binary_gt(mask, grid), pr)
-    scored = [d["iou"] for d in deforms.values() if d.get("gt_px", 1) > 0]
-    mean_part = sum(scored) / max(len(scored), 1)
-    log(f"stage3 whole_iou={whole!r} jax={float(fx3['whole_iou'])!r} min={STAGE3_WHOLE_IOU_MIN} "
+    whole = gates.stage3_whole_iou(deformed, cam, mask, grid, device=device)
+    mean_part = gates.mean_part_iou(deforms)
+    log(f"stage3 whole_iou={whole!r} jax={float(fx3['whole_iou'])!r} min={gates.STAGE3_WHOLE_IOU_MIN} "
         f"mean_part_iou={mean_part!r} jax={float(fx3['mean_part_iou'])!r} "
-        f"min={STAGE3_MEAN_PART_IOU_MIN}")
-    check(whole >= STAGE3_WHOLE_IOU_MIN, f"stage-3 whole IoU {whole}")
-    check(mean_part >= STAGE3_MEAN_PART_IOU_MIN, f"stage-3 mean part IoU {mean_part}")
+        f"min={gates.STAGE3_MEAN_PART_IOU_MIN}")
+    check(whole >= gates.STAGE3_WHOLE_IOU_MIN, f"stage-3 whole IoU {whole}")
+    check(mean_part >= gates.STAGE3_MEAN_PART_IOU_MIN, f"stage-3 mean part IoU {mean_part}")
 
-    wall, busy, top = _device_profile(body)
-    log(f"stage3 profiled body: wall_s={wall:.3f} device_busy_s={busy:.4f} "
-        f"busy_share={busy / wall:.4f}")
-    for name, ms, n in top:
-        log(f"stage3   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+
+def _sha256_counts(grid: np.ndarray):
+    g = np.ascontiguousarray(grid, np.uint8)
+    return hashlib.sha256(g.tobytes()).hexdigest(), np.bincount(g.reshape(-1), minlength=11)
+
+
+def _study_prof(text: str) -> dict:
+    """Seconds and count per ``[prof]`` phase of a study run: the stage-1 and
+    stage-2 phases by name, the preparation's with monument and view folded,
+    each monument's stage 3 as the sum of its chains."""
+    out: dict = {}
+    for name, secs in re.findall(r"\[prof\] (\S+): ([\d.]+)s", text):
+        if name.startswith("prep."):
+            name = "stage2.prep." + name.split(".")[-1]
+        elif re.match(r"stage3\.\w+\.refine_parts", name):
+            name = ".".join(name.split(".")[:2]) + ".refine_parts"
+        elif not name.startswith(("stage1.", "stage2.", "stage3.")):
+            continue
+        s, n = out.get(name, (0.0, 0))
+        out[name] = (s + float(secs), n + 1)
+    return out
+
+
+def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "cuda") -> None:
+    """Phase 7 at one of ``STUDY_RUNS``; ``fxs`` is the study fixture."""
+    run = STUDY_RUNS[tag]
+    monuments = list(config.MONUMENTS)
+    scenes = {}
+    for m in monuments:
+        planes = (fxs[f"{tag}_{m}_{k}"] for k in ("binary", "exterior", "semantic"))
+        # the planted front view serves stages 2 and 3 and, no monument's
+        # padded grid outgrowing its mask's larger side, as the notebook-4
+        # mask too
+        front = fxs[f"{tag}_{m}_front"]
+        scenes[m] = SceneMasks(MaskSet.from_labels(*planes), {"front": front, "drone": fxs[f"{tag}_{m}_drone"]}, front)
+    ids = config.part_ids(ALIGN_PARTS)
+    where = f"[{card}]"
+
+    def anchored(grids, what):
+        for m in monuments:
+            digest, counts = _sha256_counts(grids[m])
+            check(digest == str(fxs[f"{tag}_{m}_sha256"]) and np.array_equal(counts, fxs[f"{tag}_{m}_counts"]),
+                  f"study {tag} {m}: the {what} grid {grids[m].shape} {digest[:12]} is not the JAX package's "
+                  f"{tuple(fxs[f'{tag}_{m}_shape'])} {str(fxs[f'{tag}_{m}_sha256'])[:12]}")
+
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"study {tag}: {what} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    recorded: list = []
+
+    def recording_search(jobs, **kw):
+        res = refine_cameras_batched(jobs, **kw)
+        if kw.get("polish", True):
+            recorded.extend((k if isinstance(k[0], str) else k[0], params_to_vector(p), iou)
+                            for k, (p, iou) in res.items())
+        return res
+
+    def study(out_dir=None):
+        return run_all_body(scenes, strict=True, out_dir=out_dir, device=device, **run["kw"])
+
+    # 1. the study, first call: [prof] on, artifacts written
+    err_text = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    launches0 = min_dist2_kernel.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        with mock.patch.object(pipeline, "refine_cameras_batched", recording_search), \
+                mock.patch.object(profiling, "PROFILE", True), contextlib.redirect_stderr(err_text):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = study(tmp)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        text = err_text.getvalue()
+        check(list(results) == monuments, f"study {tag}: results for {list(results)}")
+        log(f"study {tag} {where}: run_all first call wall_s={first:.3f} (with [prof] fences and artifacts) "
+            f"peak_mem_bytes={peak} peak_reserved_bytes={reserved} "
+            f"min_dist2 launches={min_dist2_kernel.launches - launches0}")
+        for msg in re.findall(r"^\[(?:run_all|stage2|stage3|(?!prof)\w+\] stage\d).*$", text, re.M):
+            log(f"study {tag} log: {msg}")
+        for name, (secs, n) in sorted(_study_prof(text).items()):
+            log(f"study {tag} [prof] {secs:9.2f} s  x{n:<4d} {name}")
+        log(f"study {tag} {where}: timings " + json.dumps(
+            {m: {k: round(v, 3) for k, v in r.timings.items()} for m, r in results.items()}))
+
+        # 2. artifacts in the reference layout, with the JAX package's keys
+        for m, r in results.items():
+            base = Path(tmp)
+            check(np.array_equal(load_voxel_grid_labels(
+                base / "1.Orthographic_Voxel_Carving" / f"{m}_voxel_grid.npz"), r.grid_stage1),
+                f"study {tag} {m}: stage-1 artifact does not read back")
+            check(np.array_equal(load_voxel_grid_labels(
+                base / "3.Part-wise_3D_Refinement" / f"{m}_deformed_voxel_grid.npz"), r.grid_stage3),
+                f"study {tag} {m}: deformed grid artifact does not read back")
+            saved = json.loads((base / "3.Part-wise_3D_Refinement" / f"{m}_deform_params.json").read_text())
+            check(saved == json.loads(json.dumps(r.deform_params))
+                  and all(list(d) == ["deform", "iou", "gt_px"]
+                          and list(d["deform"]) == ["scale_y", "shift_y", "scale_xz", "shift_xz"]
+                          for d in saved.values()), f"study {tag} {m}: deform-params JSON")
+            for t, params in r.cameras.items():
+                path = base / "2.Perspective_Camera_Estimation" / f"{m}_camera_params_{t}.json"
+                raw = json.loads(path.read_text())
+                check(list(raw) == list(params) == list(VIEWS), f"study {tag} {m}: {t} JSON views {list(raw)}")
+                keys = ["cam_pos", "target", "f", "cx", "cy"] + (["H", "W"] if t == "final" else [])
+                for v in raw:
+                    check(list(raw[v]) == keys, f"study {tag} {m}: {t}/{v} JSON keys {list(raw[v])}")
+                    check(np.allclose(params_to_vector(load_camera_json(path, v)),
+                                      params_to_vector(params[v]), rtol=1e-6),
+                          f"study {tag} {m}: {t}/{v} JSON does not read back")
+    log(f"study {tag}: 5 x (stage-1 npz, 3 camera JSONs, deformed npz, deform-params JSON) read back "
+        f"in the reference layout")
+
+    lap("the first call and its artifacts")
+
+    # 3. stage 1: every grid is the JAX package's
+    anchored({m: r.grid_stage1 for m, r in results.items()}, "run_all stage-1")
+
+    # 4. stage 2: the returned IoU of every final camera re-scores exactly
+    final_ious = {}
+    for m, r in results.items():
+        shell = surface_points_by_parts(torch.as_tensor(r.grid_stage1, device=device), ALIGN_PARTS, device=device)
+        for v, cam in r.cameras["final"].items():
+            vec = params_to_vector(cam)
+            got = [iou for k, x, iou in recorded if k == (m, v) and np.array_equal(x, vec)]
+            check(bool(got), f"study {tag} {m}/{v}: the final camera is no search's result")
+            mask = scenes[m].views[v]
+            gt = torch.as_tensor(mask_labels_selected(mask, ALIGN_PARTS), device=device)
+            rescored = float(_batch_iou(torch.as_tensor(vec, device=device)[None], *shell, gt, ids, *mask.shape)[0])
+            check(all(g == rescored for g in got),
+                  f"study {tag} {m}/{v}: returned IoU {got} re-scores as {rescored}")
+            final_ious[f"{m}/{v}"] = rescored
+    log(f"study {tag} {where}: final IoUs (each equal to its re-score) " + json.dumps(final_ious))
+    if bibi_front_floor is not None:
+        check(final_ious["Bibi/front"] >= bibi_front_floor - STUDY_FRONT_IOU_ATOL,
+              f"study {tag}: Bibi front IoU {final_ious['Bibi/front']} < the serial stage 2's "
+              f"{bibi_front_floor} - {STUDY_FRONT_IOU_ATOL}")
+
+    lap("anchors and re-scoring")
+
+    # 5. the three gates and the nb4 cells, per monument
+    failures: list = []
+    for m, r in results.items():
+        cam = r.cameras["final"]["front"]
+        gold = load_voxel_grid_labels(STUDY_RUNS["golden"]["results"] / "1.Orthographic_Voxel_Carving"
+                                      / f"{m}_voxel_grid.npz")
+        iou1 = gates.stage1_iou_vs_golden(r.grid_stage1, gold)
+        same_res = iou1 if tag == "golden" else gates.stage1_iou_vs_golden(
+            r.grid_stage1, load_voxel_grid_labels(run["results"] / "1.Orthographic_Voxel_Carving"
+                                                  / f"{m}_voxel_grid.npz"))
+        whole = gates.stage3_whole_iou(r.grid_stage3, cam, scenes[m].views["front"], r.grid_stage1, device=device)
+        mean_part = gates.mean_part_iou(r.deform_params)
+        padded = np.pad(r.grid_stage1, ((0, 0), (0, config.STAGE3_PAD[m]), (0, 0)))
+        present = [p for p in config.PART_NAMES if p != "background" and (padded == config.PART_IDS[p]).any()]
+        cells = verify._nb4_state(padded, r.grid_stage3, scenes[m].nb4, cam, parts=present, device=device)[0]
+        total = sum(d for _, d in cells.values())
+        ref = json.loads((run["results"] / "3.Part-wise_3D_Refinement" / f"{m}_deform_params.json").read_text())
+        log(f"study {tag} {m} {where}: stage1_iou_vs_golden={iou1!r} (min {gates.STAGE1_IOU_MIN}) "
+            f"vs_committed_{tag}={same_res!r} stage3_whole_iou={whole!r} (min {gates.STAGE3_WHOLE_IOU_MIN}) "
+            f"mean_part_iou={mean_part!r} (min {gates.STAGE3_MEAN_PART_IOU_MIN}; the committed JAX run on "
+            f"the PNG masks: {gates.mean_part_iou(ref)!r}) nb4_total={total!r} stage3_s={r.timings['stage3']:.2f}")
+        log(f"study {tag} {m}: nb4 cells (init, deformed) "
+            f"{ {k: (round(a, 4), round(b, 4)) for k, (a, b) in cells.items()} }; part IoUs "
+            f"{ {p: round(d['iou'], 4) for p, d in r.deform_params.items()} }; committed "
+            f"{ {p: round(d['iou'], 4) for p, d in ref.items()} }")
+        regressed = [k for k, (a, b) in cells.items() if b + NB4_TOL.get(k, 1e-6) < a]
+        missed = [what for ok, what in (
+            (iou1 is not None and iou1 >= gates.STAGE1_IOU_MIN, f"stage-1 IoU {iou1}"),
+            (whole >= gates.STAGE3_WHOLE_IOU_MIN, f"stage-3 whole IoU {whole}"),
+            (mean_part >= gates.STAGE3_MEAN_PART_IOU_MIN, f"mean part IoU {mean_part}"),
+            (not regressed, f"nb4 cells regressed: {regressed}")) if not ok]
+        failures += [f"{m}: {what}" for what in missed]
+    check(not failures, f"study {tag}: gates missed: {failures}")
+    lap("gates and nb4 cells")
+
+    # 6. the two carve routes, second runs of each: all scenes' sweeps side
+    # by side, and one scene after the other (``carve_monument_fused`` on two
+    # worker threads, each on its own stream)
+    sets = {m: scenes[m].front for m in monuments}
+    need = _sweep_working_set(list(sets.values()))
+    free = torch.cuda.mem_get_info()[0]
+    check(need <= free // 2, f"study {tag}: the stacked carve needs {need} B of {free // 2} B budgeted")
+    check("batched stage1 x5" in text, f"study {tag}: run_all did not take the multi-scene carve")
+    turns = ("per_scene", "stacked", "stacked", "per_scene") if tag == "256" else ("per_scene", "stacked")
+    for route in turns:
+        budget = need - 1 if route == "per_scene" else None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        grids = carve_monuments_batched(sets, mem_budget_bytes=budget, device=device)
+        secs = time.perf_counter() - t0
+        anchored(grids, f"{route} route's")
+        log(f"study {tag} {where}: carve route {route} wall_s={secs:.3f} "
+            f"peak_mem_bytes={torch.cuda.max_memory_allocated()} (run_all took the stacked route; "
+            f"working-set estimate {need} B, budget {free // 2} B)")
+    del grids
+    lap("carve routes")
+
+    # 7. the second call: the same results, whatever ran beside what
+    second: dict = {}
+    if tag == "256":
+        wall, busy, top = _device_profile(lambda: second.update(study()))
+        log(f"study {tag} {where}: run_all second call, profiled: wall_s={wall:.3f} "
+            f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
+        for name, ms, n in top:
+            log(f"study {tag}   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        second.update(study())
+        torch.cuda.synchronize()
+        log(f"study {tag} {where}: run_all second call wall_s={time.perf_counter() - t0:.3f}")
+    for m, r in results.items():
+        same = (second[m].deform_params == r.deform_params
+                and np.array_equal(second[m].grid_stage3, r.grid_stage3)
+                and all(np.array_equal(params_to_vector(second[m].cameras["final"][v]), params_to_vector(c))
+                        for v, c in r.cameras["final"].items()))
+        check(same, f"study {tag} {m}: a second run_all gave other cameras or deforms")
+    log(f"study {tag}: the second call's cameras, deforms and grids are the first call's")
+    lap("the second call")
 
 
 def main() -> int:
@@ -701,6 +951,13 @@ def main() -> int:
     check(all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
           f"the kernel spills registers: {spills}")
 
+    fxs = np.load(STUDY)
+    if sys.argv[1:] == ["study"]:
+        for tag in STUDY_RUNS:
+            phase_study(fxs, tag, card)
+        log(f"study alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
+        return 0
+
     kernel = phase_kernel()
 
     fx = np.load(FIXTURE)
@@ -709,8 +966,12 @@ def main() -> int:
     launches = phase_metrics(fx, grid)
     check(launches > 0, "the metrics never launched the min-dist kernel")
     fx2 = np.load(FIXTURE2)
-    phase_stage2(fx2, grid)
+    ious2 = phase_stage2(fx2, grid)
     phase_stage3(np.load(FIXTURE3), fx2, grid)
+    log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
+    phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"])
+    phase_study(fxs, "256", card)
+    log(f"whole smoke: {time.perf_counter() - t0:.1f} s")
 
     log(card)
     log(json.dumps({"kernels": [{

@@ -21,21 +21,31 @@ Draws.  The JAX package draws its proposals from ``jax.random`` (threefry),
 which torch cannot reproduce.  ``draws=None`` takes them from a
 ``torch.Generator`` on the device seeded with ``seed``; ``draws`` may instead
 map each seed to a ``(generations, population, 9)`` float32 array of
-uniform [-1, 1) draws — for the JAX package's own,
+uniform [-1, 1) draws, or be a function ``(seed, generations, population)``
+that returns one — for the JAX package's own,
 ``jax.random.uniform(k, (population, 9), f32, -1, 1)`` for each ``k`` in
 ``jax.random.split(PRNGKey(seed), generations)`` — and then the search
 follows the JAX trajectory wherever the objectives agree.  ``population`` is
-rounded exactly as the JAX package rounds it (see :func:`_pop_chunk`), so
-the same draws fit.
+rounded exactly as the JAX package rounds it (see :func:`_pop_chunk` and
+:func:`refine_cameras_batched`), so the same draws fit.
 
-Not ported here: ``refine_cameras_batched`` (``run_all``'s search of all
-views at once) and the one-hot matmul objective the JAX package uses inside
-its half-resolution recursion; the port splats exactly everywhere.
+Several views.  :func:`_search` carries a leading view axis: the views of
+one group run through the same launches, each with its own points, plane,
+start and step scale, and all with the same draws.
+:func:`refine_cameras_batched` (``run_all``'s search of all views) groups
+the views as the JAX package does.  On this card the reason to group is the
+launch count: one search is a few hundred small launches a generation and
+leaves the device mostly idle, and a group of V views costs the launches of
+one.
+
+Not ported: the one-hot matmul objective the JAX package uses for coarse
+planes of at most 2^18 pixels (inside its half-resolution recursion and in
+every grouped coarse search); the port splats exactly everywhere.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +55,7 @@ from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.carving.voxel import bucket_size, points_by_parts, surface_points_by_parts
 from pbr3d_torch.ops.cameramath import _fma
 from pbr3d_torch.ops.projection import partwise_iou, splat_labels
+from pbr3d_torch.utils.streams import adopt
 
 #: Reference step sizes (camera_estimation.py:605-616).
 _STEPS0 = np.array([50, 50, 100, 50, 50, 100, 50, 20, 20], np.float32)
@@ -54,35 +65,51 @@ _STEPS0 = np.array([50, 50, 100, 50, 50, 100, 50, 20, 20], np.float32)
 #: resolution from the upscaled optimum.
 _COARSE_PLANE_PIXELS = 512 * 512
 
-Draws = Optional[Mapping[int, np.ndarray]]
+#: Point-candidates (points x cameras x views) per evaluated batch: the JAX
+#: package's bound on its projection intermediates.
+_POINT_BUDGET = 1 << 26
+
+#: Plane pixels x cameras x views per evaluated batch: bounds the int64 splat
+#: planes, which the point budget does not see.  Candidates are scored
+#: independently, so a smaller batch changes no score.
+_PLANE_BUDGET = 1 << 28
+
+Draws = Optional[Union[Mapping[int, np.ndarray], Callable[[int, int, int], np.ndarray]]]
 
 
-def _batch_iou(cam_vecs: torch.Tensor, pts, labels, gt_labels, part_ids, H: int, W: int):
+def _batch_iou(cam_vecs: torch.Tensor, pts, labels, gt_labels, part_ids, H: int, W: int,
+               valid=None, true_hw=None):
     """(P,) float32 mean part IoU of each (P, 9) camera's splat of ``pts``
-    against ``gt_labels (H, W)``."""
+    against ``gt_labels (H, W)``; or ``(V, P)`` for V views at once, in the
+    layout of :func:`pbr3d_torch.ops.projection.splat_labels` with
+    ``gt_labels (V, 1, H, W)``."""
     img = splat_labels(
-        pts, labels, None, cam_vecs[:, 0:3], cam_vecs[:, 3:6],
-        cam_vecs[:, 6], cam_vecs[:, 7], cam_vecs[:, 8], H, W,
+        pts, labels, valid, cam_vecs[..., 0:3], cam_vecs[..., 3:6],
+        cam_vecs[..., 6], cam_vecs[..., 7], cam_vecs[..., 8], H, W, true_hw,
     )
     return partwise_iou(img, gt_labels, part_ids)[1]
 
 
-def _pop_chunk(n_points: int, population: int) -> Tuple[int, int]:
+def _pop_chunk(n_points: int, population: int, n_views: int = 1) -> Tuple[int, int]:
     """(pop_chunk, effective population): the JAX package's memory bound of
-    ~2^26 point-candidates per batch on its point bucket, floored to a power
-    of two, and the population rounded to a multiple of it."""
-    pop_chunk = max(1, min(population, (1 << 26) // bucket_size(n_points)))
+    ~2^26 point-candidates per batch on its point bucket times the views of
+    the group, floored to a power of two, and the population rounded to a
+    multiple of it."""
+    pop_chunk = max(1, min(population, _POINT_BUDGET // max(1, bucket_size(n_points) * n_views)))
     pop_chunk = 1 << (pop_chunk.bit_length() - 1)
     return pop_chunk, max(pop_chunk, (population // pop_chunk) * pop_chunk)
 
 
 def _uniform_draws(draws: Draws, seed: int, generations: int, population: int, device):
+    if not generations:
+        return torch.empty((0, population, 9), device=device)
     if draws is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         u = torch.rand((generations, population, 9), generator=gen, device=device)
         return u * 2.0 - 1.0
-    u = torch.as_tensor(np.asarray(draws[seed], np.float32), device=device)
+    given = draws(seed, generations, population) if callable(draws) else draws[seed]
+    u = torch.as_tensor(np.asarray(given, np.float32), device=device)
     if tuple(u.shape) != (generations, population, 9):
         raise ValueError(f"draws for seed {seed} have shape {tuple(u.shape)}, "
                          f"need {(generations, population, 9)}")
@@ -90,50 +117,56 @@ def _uniform_draws(draws: Draws, seed: int, generations: int, population: int, d
 
 
 def _search(
-    init_vec: torch.Tensor,
-    pts: torch.Tensor,
-    labels: torch.Tensor,
-    gt_labels: torch.Tensor,
+    init_vecs: torch.Tensor,  # (V, 9)
+    pts: torch.Tensor,  # (V, 1, N, 3)
+    labels: torch.Tensor,  # (V, 1, N)
+    valid,  # (V, 1, N) bool, or None: every point valid
+    gt_labels: torch.Tensor,  # (V, 1, H, W)
+    true_hw,  # ((V, 1, 1), (V, 1, 1)) image bounds inside (H, W), or None
     part_ids,
-    H: int, W: int,
     u: torch.Tensor,  # (generations, population, 9) uniform [-1, 1)
     cd_rounds: int,
     lock_xy_equal: bool,
     pop_chunk: int,
-    step_scale: float = 1.0,
+    step_scales: torch.Tensor,  # (V,) float32
     cd_mags: Tuple[float, ...] = (1.0,),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Random search, then coordinate descent; returns (best (9,), IoU) as
-    device tensors."""
-    dev = init_vec.device
+    """Random search, then coordinate descent, of V views side by side;
+    returns (best (V, 9), IoU (V,)) as device tensors.  Every view takes the
+    same draws; nothing else couples them."""
+    dev = init_vecs.device
+    V = init_vecs.shape[0]
+    H, W = gt_labels.shape[-2:]
+    chunk = max(1, min(pop_chunk, _PLANE_BUDGET // (V * H * W)))
 
     def lock(c):
-        return torch.cat([c[:, 3:5], c[:, 2:]], dim=1) if lock_xy_equal else c
+        return torch.cat([c[..., 3:5], c[..., 2:]], dim=-1) if lock_xy_equal else c
 
-    def eval_batch(vecs):
+    def eval_batch(vecs):  # (V, P, 9) -> (V, P)
         return torch.cat([
-            _batch_iou(vecs[i:i + pop_chunk], pts, labels, gt_labels, part_ids, H, W)
-            for i in range(0, vecs.shape[0], pop_chunk)
-        ])
+            _batch_iou(vecs[:, i:i + chunk], pts, labels, gt_labels, part_ids, H, W, valid, true_hw)
+            for i in range(0, vecs.shape[1], chunk)
+        ], dim=1)
 
     def take_best(cands, ious, best, biou, alive):
-        i = ious.argmax().reshape(1)  # first maximum, as jnp.argmax
-        top = ious.index_select(0, i)[0]
+        i = ious.argmax(dim=1, keepdim=True)  # first maximum, as jnp.argmax
+        top = ious.gather(1, i)[:, 0]
         imp = (top > biou) & alive
-        return imp, torch.where(imp, cands.index_select(0, i)[0], best), torch.where(imp, top, biou)
+        cand = cands.gather(1, i[:, :, None].expand(V, 1, 9))[:, 0]
+        return imp, torch.where(imp[:, None], cand, best), torch.where(imp, top, biou)
 
-    best = init_vec
-    biou = eval_batch(init_vec[None])[0]
-    steps = torch.tensor(_STEPS0, device=dev) * step_scale
-    stall = torch.zeros((), dtype=torch.int32, device=dev)
-    shrinks = torch.zeros((), dtype=torch.int32, device=dev)
+    best = init_vecs
+    biou = eval_batch(init_vecs[:, None])[:, 0]
+    steps = torch.tensor(_STEPS0, device=dev) * step_scales[:, None]
+    stall = torch.zeros(V, dtype=torch.int32, device=dev)
+    shrinks = torch.zeros(V, dtype=torch.int32, device=dev)
     for g in range(u.shape[0]):
         alive = shrinks < 4  # the reference's host loop broke after 4 shrinks
-        cand = lock(_fma(u[g], steps[None], best[None]))
+        cand = lock(_fma(u[g][None], steps[:, None], best[:, None]))
         imp, best, biou = take_best(cand, eval_batch(cand), best, biou, alive)
         stall = torch.where(imp, 0, stall + alive.to(torch.int32))
         do_shrink = (stall >= 3) & alive
-        steps = torch.where(do_shrink, steps * 0.7, steps)
+        steps = torch.where(do_shrink[:, None], steps * 0.7, steps)
         shrinks = shrinks + do_shrink.to(torch.int32)
         stall = torch.where(do_shrink, 0, stall)
 
@@ -142,13 +175,163 @@ def _search(
     eye = torch.eye(9, dtype=torch.float32, device=dev)
     offs = torch.cat([eye, -eye])
     mags = torch.tensor(np.asarray(cd_mags, np.float32), device=dev)
-    delta = torch.tensor(20.0, dtype=torch.float32, device=dev) * step_scale
-    yes = torch.ones((), dtype=torch.bool, device=dev)
+    delta = 20.0 * step_scales
+    yes = torch.ones(V, dtype=torch.bool, device=dev)
     for _ in range(cd_rounds):
-        probes = lock((best[None, None] + offs[None] * (delta * mags)[:, None, None]).reshape(-1, 9))
+        probes = lock((best[:, None, None] + offs * (delta[:, None] * mags)[:, :, None, None])
+                      .reshape(V, -1, 9))
         imp, best, biou = take_best(probes, eval_batch(probes), best, biou, yes)
         delta = torch.where(imp, delta, delta * 0.5)
     return best, biou
+
+
+def _search_one(init_vec: torch.Tensor, pts, labels, mask_sel, part_ids, u, cd_rounds,
+                lock_xy_equal, pop_chunk, step_scale: float = 1.0, cd_mags=(1.0,)):
+    """:func:`_search` of one view at its true plane ``mask_sel (H, W)`` and
+    point count, from ``init_vec (9,)``; returns (best (9,), IoU)."""
+    dev = init_vec.device
+    best, biou = _search(
+        init_vec[None], pts[None, None], labels[None, None], None,
+        torch.as_tensor(mask_sel, device=dev)[None, None], None, part_ids, u, cd_rounds,
+        lock_xy_equal, pop_chunk, torch.tensor([step_scale], dtype=torch.float32, device=dev),
+        tuple(cd_mags),
+    )
+    return best[0], biou[0]
+
+
+def _final_params(best: np.ndarray, H: int, W: int) -> Dict:
+    params = vector_to_params(np.asarray(best, np.float64), H=H, W=W)
+    return {
+        "cam_pos": np.asarray(params["cam_pos"], np.float64),
+        "target": np.asarray(params["target"], np.float64),
+        "f": float(params["f"]),
+        "cx": float(params["cx"]),
+        "cy": float(params["cy"]),
+        "H": H,
+        "W": W,
+    }
+
+
+def refine_cameras_batched(
+    jobs: Dict,
+    *,
+    generations: int = 40,
+    population: int = 64,
+    cd_rounds: int = 6,
+    seed: int = 0,
+    lock_xy_equal: bool = False,
+    coarse_stride: int = 2,
+    polish: bool = True,
+    point_cap: int = 32768,
+    plane_cap: int = 160_000,
+    cd_mags: Tuple[float, ...] = (1.0,),
+    draws: Draws = None,
+    device,
+) -> Dict:
+    """All views' mask-IoU camera refinements on ``device``, grouped.
+
+    ``jobs``: key -> dict(grid_labels=..., mask_labels=..., parts=[...],
+    init_params=..., points=optional precomputed (pts, labels) shell as
+    arrays or tensors, step_scale=optional proposal-step multiplier).
+    Returns key -> (params, best IoU) like :func:`refine_camera_mask_iou`.
+
+    1. Per view a coarse factor s in {1, 2, 4, 8} keeps the search plane at
+       or under ``plane_cap`` pixels (the mask is strided by s; f, cx, cy are
+       divided by s and multiplied back), and a point stride of at least
+       ``coarse_stride`` keeps the shell at or under ``point_cap`` points.
+    2. Views are grouped by the JAX package's key (the coarse plane rounded
+       up to 128, the strided shell's point bucket); each group's random
+       search runs as one :func:`_search`, padded to its largest member.
+       The population is rounded by the group's size as the JAX package
+       rounds it, and every view of every group takes the draws of ``seed``.
+    3. ``polish=False`` returns the coarse optimum with its coarse IoU (for
+       ranking a view's starts against each other).  Otherwise every view's
+       coordinate descent runs at native resolution on the full shell from
+       its coarse optimum, and its IoU is returned.  Nothing waits on the
+       host before all of it is queued.
+    """
+    keys = list(jobs)
+    uploaded: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    prep = {}
+    for k in keys:
+        j = jobs[k]
+        mask = np.asarray(j["mask_labels"])
+        H, W = mask.shape[:2]
+        if j.get("points") is None:
+            pts, labels = surface_points_by_parts(j["grid_labels"], j["parts"], device=device)
+        else:
+            if id(j["points"]) not in uploaded:  # views and starts of a monument share a shell
+                uploaded[id(j["points"])] = tuple(
+                    adopt(torch.as_tensor(a, device=device)) for a in j["points"])
+            pts, labels = uploaded[id(j["points"])]
+        sel = mask_labels_selected(mask, j["parts"])
+        s = 1
+        while (H // s) * (W // s) > plane_cap and s < 8:
+            s *= 2
+        init = dict(j["init_params"])
+        for f in ("f", "cx", "cy"):
+            init[f] = float(init[f]) / s
+        stride = max(coarse_stride, -(-pts.shape[0] // point_cap))
+        prep[k] = dict(
+            pts=pts, labels=labels, sel=sel, s=s, H=H, W=W, coarse_mask=sel[::s, ::s], init=init,
+            part_ids=config.part_ids(j["parts"]), stride=stride,
+            n_coarse=len(range(0, pts.shape[0], stride)),
+            step_scale=float(j.get("step_scale", 1.0)),
+        )
+
+    # ---- phase 1: grouped coarse random search ----
+    groups: Dict[Tuple[Tuple[int, int], int], list] = {}
+    for k in keys:
+        hw = tuple(-(-x // 128) * 128 for x in prep[k]["coarse_mask"].shape[:2])
+        groups.setdefault((hw, bucket_size(prep[k]["n_coarse"])), []).append(k)
+
+    coarse: Dict = {}  # key -> ((9,) float64 native-pixel optimum, coarse IoU), on the device
+    for (_, bucket), gkeys in groups.items():
+        V = len(gkeys)
+        members = [prep[k] for k in gkeys]
+        N = max(p["n_coarse"] for p in members)
+        Hg = max(p["coarse_mask"].shape[0] for p in members)
+        Wg = max(p["coarse_mask"].shape[1] for p in members)
+        pts_b = torch.zeros((V, 1, N, 3), dtype=torch.float32, device=device)
+        lab_b = torch.zeros((V, 1, N), dtype=torch.uint8, device=device)
+        val_b = torch.zeros((V, 1, N), dtype=torch.bool, device=device)
+        gt_b = np.zeros((V, 1, Hg, Wg), np.uint8)
+        for i, p in enumerate(members):
+            n = p["n_coarse"]
+            pts_b[i, 0, :n] = p["pts"][:: p["stride"]]
+            lab_b[i, 0, :n] = p["labels"][:: p["stride"]]
+            val_b[i, 0, :n] = True
+            cm = p["coarse_mask"]
+            gt_b[i, 0, : cm.shape[0], : cm.shape[1]] = cm
+        true_hw = tuple(
+            torch.tensor([p["coarse_mask"].shape[a] for p in members], device=device).view(V, 1, 1)
+            for a in (0, 1))
+        pop_chunk, pop = _pop_chunk(bucket, population, V)
+        best, biou = _search(
+            torch.tensor(np.stack([params_to_vector(p["init"]) for p in members]), device=device),
+            pts_b, lab_b, val_b, torch.as_tensor(gt_b, device=device), true_hw,
+            members[0]["part_ids"], _uniform_draws(draws, seed, generations, pop, device),
+            0, lock_xy_equal, pop_chunk,
+            torch.tensor([p["step_scale"] for p in members], dtype=torch.float32, device=device),
+        )
+        best = best.double()
+        best[:, 6:9] *= torch.tensor([[p["s"]] for p in members], dtype=torch.float64, device=device)
+        for i, k in enumerate(gkeys):  # f, cx, cy back in native pixels
+            coarse[k] = (best[i], biou[i])
+
+    if polish:
+        # ---- phase 2: native-resolution coordinate descent, all queued ----
+        u = torch.empty((0, 1, 9), device=device)
+        for k in keys:
+            p = prep[k]
+            coarse[k] = _search_one(
+                coarse[k][0].float(), p["pts"], p["labels"], p["sel"], p["part_ids"], u, cd_rounds,
+                lock_xy_equal, _pop_chunk(p["pts"].shape[0], population)[0], p["step_scale"], cd_mags)
+    out = {}
+    for k in keys:  # in the jobs' order, whatever the groups' was
+        best, biou = coarse[k]
+        out[k] = (_final_params(best.cpu().numpy(), prep[k]["H"], prep[k]["W"]), float(biou))
+    return out
 
 
 def mask_labels_selected(mask_labels: np.ndarray, parts: Sequence[str]) -> np.ndarray:
@@ -209,26 +392,15 @@ def refine_camera_mask_iou(
     # Surface shell, not the solid: the same silhouettes (rays enter
     # through the shell) at a fraction of the points.
     pts, labels = surface_points_by_parts(grid_labels, parts_for_alignment, device=device)
-    gt = torch.as_tensor(mask_labels_selected(mask_labels, parts_for_alignment), device=device)
     pop_chunk, population = _pop_chunk(pts.shape[0], population)
-    u = _uniform_draws(draws, seed, generations, population, device) if generations else \
-        torch.empty((0, population, 9), device=device)
-    best, best_iou = _search(
-        torch.tensor(params_to_vector(init_params), device=device),
-        pts, labels, gt, config.part_ids(parts_for_alignment), H, W,
-        u, cd_rounds, lock_xy_equal, pop_chunk, float(step_scale), tuple(cd_mags),
+    best, best_iou = _search_one(
+        torch.tensor(params_to_vector(init_params), device=device), pts, labels,
+        mask_labels_selected(mask_labels, parts_for_alignment),
+        config.part_ids(parts_for_alignment),
+        _uniform_draws(draws, seed, generations, population, device),
+        cd_rounds, lock_xy_equal, pop_chunk, float(step_scale), cd_mags,
     )
-    params = vector_to_params(best.cpu().numpy().astype(np.float64), H=H, W=W)
-    out = {
-        "cam_pos": np.asarray(params["cam_pos"], np.float64),
-        "target": np.asarray(params["target"], np.float64),
-        "f": float(params["f"]),
-        "cx": float(params["cx"]),
-        "cy": float(params["cy"]),
-        "H": H,
-        "W": W,
-    }
-    return out, float(best_iou)
+    return _final_params(best.cpu().numpy(), H, W), float(best_iou)
 
 
 def evaluate_camera_iou(

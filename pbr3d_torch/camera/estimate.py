@@ -15,6 +15,7 @@
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +24,12 @@ import torch
 from pbr3d_torch import config
 from pbr3d_torch.carving.voxel import points_by_parts
 from pbr3d_torch.ops.cameramath import project_points
+
+
+#: Forward-mode AD keeps one dual level for the whole process, and a second
+#: thread that enters it raises "Nested forward mode AD is not supported":
+#: the fits of concurrent threads (``run_all``'s preparation pool) take turns.
+_FORWARD_AD_LOCK = threading.Lock()
 
 
 def init_from_bbox(
@@ -128,7 +135,7 @@ def _lm_fit(
     x = x0
     lam = torch.tensor(1e-3, dtype=torch.float32, device=x0.device)
     dn = torch.tensor(1.0, dtype=torch.float32, device=x0.device)
-    with fwAD.dual_level():
+    with _FORWARD_AD_LOCK, fwAD.dual_level():
         # The keypoints enter as duals with zero tangents: forward AD of an
         # op that mixes dual and plain operands takes a slow decomposition.
         consts = [fwAD.make_dual(t, torch.zeros_like(t)) for t in (vox_kps, img_kps, kp_mask)]

@@ -1,90 +1,223 @@
-"""Stage 1, production path: ``carve_monument_fused`` for one scene.
+"""Stage 1, production path: ``carve_monument_fused`` for one scene and
+``carve_monuments_batched`` for several.
 
-Port of the single-scene path of ``pbr3d.carving.fused``.  The JAX version
-pads every grid, window and mask to buckets so that monuments and component
-crops share compiled TPU programs; PyTorch runs eagerly, so the port works
-at the true extents.  The plans are origin-embedded and the padding is
-always empty, so this changes no voxel: the result is bit-identical to the
-JAX package (and therefore to the reference implementation).
+Port of ``pbr3d.carving.fused``.  The JAX version pads every grid, window and
+mask to buckets so that monuments and component crops share compiled TPU
+programs; PyTorch runs eagerly, so the port works at the true extents.  The
+plans are origin-embedded and the padding is always empty, so this changes
+no voxel: the result is bit-identical to the JAX package (and therefore to
+the reference implementation).
 
 Phases (reference: utils/voxel_carving_utils.py:269-400):
 
 1. global carve + per-part-group re-carve (device sweeps);
-2. component-guided carve: host scipy labelling of one grid download, then
-   one device sweep per component bbox window;
+2. component-guided carve: host scipy labelling of one grid download, each
+   part on its occupied bbox only, then the device sweeps of the component
+   bbox windows;
 3. interior extrusion of doors/windows in the four directions (device);
 4. the persistent transpose+flip reorientation (device) and the
    back-minaret recolor (host).
+
+Batching.  Where the JAX package pads volumes to a common bucket and
+``vmap``s, the port lays them side by side: a sweep works on an ``(H, W*D)``
+plane and gathers along its second axis only, so several volumes become one
+``(max H, sum of W*D)`` plane whose gather indices carry each volume's
+offset.  No volume reads another's columns, rows past a volume's own height
+hold nothing, and one set of launches sweeps them all.  The scenes of
+``carve_monuments_batched`` and the windows of ``guided_carve_batched`` both
+go through this layout (:func:`_stacked_plan_tensors`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pbr3d_torch import config
 from pbr3d_torch.config import PART_IDS
-from pbr3d_torch.ops.carve import _stacked_plans, plans_to_device, sweep_volume
+from pbr3d_torch.ops.carve import _stacked_plans, sweep_scan
 from pbr3d_torch.ops.components import _host_component_stats, _host_scipy_label
 from pbr3d_torch.utils.profiling import prof
+from pbr3d_torch.utils.streams import adopt, worker_stream
+
+#: Bytes alive per plane element at the peak of the stacked global + group
+#: carve: about nine uint8 planes (masks, grid, result, the group's
+#: selection, occupancy and sweep state) and the sweep's int32 decision
+#: plane, rounded up.
+_SWEEP_BYTES_PER_ELEM = 16
+
+#: ``mem_budget_bytes`` of :func:`carve_monuments_batched` on a CPU device;
+#: on a CUDA device the default is half of the card's free memory.
+_CPU_SWEEP_BUDGET = 4 << 30
+
+#: Plane elements (max H x sum of W*D) per launch set of the guided windows.
+_GUIDED_BATCH_ELEMS = 1 << 27
+
+
+def _stacked_plan_tensors(whd: Sequence[Tuple[int, int, int]], angle: int, device):
+    """Sweep plans of several ``(w, h, d)`` volumes laid side by side (see
+    the module docstring): ``(idx (A, 4, N) int64, dec (A, N) int32, offsets)``
+    with ``N = sum of w*d`` and ``offsets[i]`` volume i's first column."""
+    offsets = np.concatenate([[0], np.cumsum([w * d for w, _, d in whd])]).astype(np.int64)
+    plans = [_stacked_plans(w, d, int(angle)) for w, _, d in whd]
+    idx = np.concatenate([p[0].astype(np.int64) + o for p, o in zip(plans, offsets)], axis=2)
+    dec = np.concatenate([p[1] for p in plans], axis=1)
+    return torch.from_numpy(idx).to(device), torch.from_numpy(dec).to(device), offsets
+
+
+def _split_plane(plane: torch.Tensor, whd, offsets) -> List[torch.Tensor]:
+    """The ``(w, h, d)`` views of a side-by-side plane."""
+    return [
+        plane[:h, int(o):int(o) + w * d].view(h, w, d).permute(1, 0, 2)
+        for (w, h, d), o in zip(whd, offsets)
+    ]
 
 
 def _global_and_part_carve(
-    binary_wh: torch.Tensor,  # (W, H) uint8 {0,1}
-    ext_wh: torch.Tensor,  # (W, H) uint8 labels
-    plans,  # device (idx, dec) of the global sweep
+    mask_sets: Sequence,
+    global_angle: int,
     group_ids: Tuple[Tuple[int, ...], ...],
-) -> torch.Tensor:
-    """Global carve + per-group part carve.
+    device,
+) -> List[torch.Tensor]:
+    """Global carve + per-group part carve of every scene in one set of
+    launches; returns one contiguous ``(W, H, D)`` uint8 label grid a scene.
 
     All groups use the same (90°) sweep plans as the global carve — true for
     the reference's notebook preset (checked by the caller).
     """
-    W, H = binary_wh.shape
-    occ0 = torch.ones((W, H, W), dtype=torch.uint8, device=binary_wh.device)
-    grid = sweep_volume(occ0, binary_wh, plans) * ext_wh[:, :, None]
+    whd = [(ms.binary.shape[1], ms.binary.shape[0], ms.binary.shape[1]) for ms in mask_sets]
+    idx, dec, offsets = _stacked_plan_tensors(whd, global_angle, device)
+    shape = (max(h for _, h, _ in whd), int(offsets[-1]))
 
+    def plane(masks_hw):
+        """Each scene's (h, w) mask broadcast over depth into the layout."""
+        out = torch.zeros(shape, dtype=torch.uint8, device=device)
+        for m, (w, h, d), o in zip(masks_hw, whd, offsets):
+            m = torch.from_numpy(np.ascontiguousarray(m, np.uint8)).to(device)
+            out[:h, int(o):int(o) + w * d] = m[:, :, None].expand(h, w, d).reshape(h, w * d)
+        return out
+
+    binary = plane([ms.binary for ms in mask_sets])
+    ext = plane([ms.exterior_labels for ms in mask_sets])
+    grid = sweep_scan(torch.ones_like(binary), binary, idx, dec) * ext
     final = torch.zeros_like(grid)
     for ids in group_ids:
-        m_wh = torch.isin(ext_wh, torch.tensor(ids, dtype=torch.uint8, device=ext_wh.device))
-        sub = grid * m_wh.to(torch.uint8)[:, :, None]
-        part = sub * sweep_volume((sub > 0).to(torch.uint8), m_wh, plans)
+        m = torch.isin(ext, torch.tensor(ids, dtype=torch.uint8, device=device)).to(torch.uint8)
+        sub = grid * m
+        part = sub * sweep_scan((sub > 0).to(torch.uint8), m, idx, dec)
         final = torch.where(part > 0, part, final)
-    return final
+    return [g.contiguous() for g in _split_plane(final, whd, offsets)]
 
 
-def _guided_windows_for_part(
-    grid: torch.Tensor,  # (W, H, D) uint8 labels on device; updated in place
-    comp_host: np.ndarray,  # (W, H, D) int32 host component labels
-    n: int,
-    stats,
-    mask2d: np.ndarray,  # (H, W) bool
-    angle: int,
-) -> torch.Tensor:
-    """Carve each component inside its bbox window against the bbox-cropped
-    2D part mask, sweeping only that component's own occupancy
-    (reference ``left_right_guided_carve``, voxel_carving_utils.py:163-210).
+def _collect_guided_jobs(
+    grid_host: np.ndarray,  # (w, h, d) labels of one scene
+    exterior_labels: np.ndarray,
+    part_symmetry,
+) -> List[Dict]:
+    """One scene's window jobs of the component-guided carve (reference
+    ``left_right_guided_carve``, voxel_carving_utils.py:163-210), without
+    applying them: per component of each part its bbox window ``start``
+    (full-frame), its own occupancy ``comp (w, h, d)`` bool, the bbox-cropped
+    2D part mask ``m_wh (w, h)`` bool and the sweep ``angle``.
 
-    The component labels are safely stale (a part's carve only erases its own
-    voxels); the window content is the live grid, so earlier parts' carving
-    applies.  JAX's ``dynamic_slice``/``dynamic_update_slice`` become a
-    slice view of ``grid`` written in place.
-    """
-    device = grid.device
-    for i in range(1, n + 1):
-        if stats["count"][i] == 0:
+    Labelling runs on the part's occupied bbox only: the components are the
+    same (face connectivity cannot cross a bbox that holds every part
+    voxel), at a fraction of a full-grid labelling."""
+    jobs = []
+    for part, angle in part_symmetry:
+        target = PART_IDS[part]
+        mask2d = exterior_labels == target
+        if not mask2d.any():
             continue
-        x0, y0, z0 = (int(v) for v in stats["bbox_min"][i])
-        x1, y1, z1 = (int(v) + 1 for v in stats["bbox_max"][i])
-        w, d = x1 - x0, z1 - z0
-        comp = torch.from_numpy(comp_host[x0:x1, y0:y1, z0:z1] == i).to(device)
-        m_wh = torch.from_numpy(np.ascontiguousarray(mask2d[y0:y1, x0:x1].T)).to(device)
-        plans = plans_to_device(_stacked_plans(w, d, int(angle)), device)
-        carved = sweep_volume(comp.to(torch.uint8), m_wh, plans)
-        grid[x0:x1, y0:y1, z0:z1].masked_fill_(comp & (carved == 0), 0)
-    return grid
+        with prof(f"gcj.{part}.eqbbox", sync=False):
+            occ = grid_host == target
+            bb = _bbox3(occ)
+        if bb is None:
+            continue
+        (X0, X1), (Y0, Y1), (Z0, Z1) = bb
+        with prof(f"gcj.{part}.label", sync=False):
+            comp_c, n = _host_scipy_label(occ[X0:X1, Y0:Y1, Z0:Z1], "face")
+        if n == 0:
+            continue
+        with prof(f"gcj.{part}.stats", sync=False):
+            stats = _host_component_stats(comp_c, n, centroid_axes=())
+        for i in range(1, n + 1):
+            if stats["count"][i] == 0:
+                continue
+            # stats are in the crop frame; jobs carry full-frame coordinates
+            lo = [int(v) for v in stats["bbox_min"][i]]
+            hi = [int(v) + 1 for v in stats["bbox_max"][i]]
+            x0, y0, z0 = lo[0] + X0, lo[1] + Y0, lo[2] + Z0
+            x1, y1 = hi[0] + X0, hi[1] + Y0
+            jobs.append(dict(
+                start=(x0, y0, z0),
+                comp=comp_c[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] == i,
+                m_wh=np.ascontiguousarray(mask2d[y0:y1, x0:x1].T),
+                angle=int(angle),
+            ))
+    return jobs
+
+
+def _guided_erases(jobs: Sequence[Dict], angle: int, device) -> List[torch.Tensor]:
+    """The carve decision of each window job (all of one ``angle``): the
+    ``(w, h, d)`` bool voxels of its component that the sweep of the
+    component's own occupancy against the window's part mask removes.  All
+    windows go through one set of launches."""
+    whd = [j["comp"].shape for j in jobs]
+    idx, dec, offsets = _stacked_plan_tensors(whd, angle, device)
+    shape = (max(h for _, h, _ in whd), int(offsets[-1]))
+    occ = np.zeros(shape, np.uint8)
+    mask = np.zeros(shape, np.uint8)
+    for j, (w, h, d), o in zip(jobs, whd, offsets):
+        occ[:h, o:o + w * d] = j["comp"].transpose(1, 0, 2).reshape(h, w * d)
+        mask[:h, o:o + w * d] = np.repeat(j["m_wh"].T, d, axis=1)
+    occ = torch.from_numpy(occ).to(device)
+    carved = sweep_scan(occ, torch.from_numpy(mask).to(device), idx, dec)
+    return _split_plane((occ > 0) & (carved == 0), whd, offsets)
+
+
+def _job_chunks(items):
+    """Split ``(scene, job)`` items into runs whose side-by-side plane stays
+    under ``_GUIDED_BATCH_ELEMS`` elements (a single larger window runs alone)."""
+    chunk, hmax, cols = [], 0, 0
+    for item in items:
+        w, h, d = item[1]["comp"].shape
+        if chunk and max(hmax, h) * (cols + w * d) > _GUIDED_BATCH_ELEMS:
+            yield chunk
+            chunk, hmax, cols = [], 0, 0
+        chunk.append(item)
+        hmax, cols = max(hmax, h), cols + w * d
+    if chunk:
+        yield chunk
+
+
+def guided_carve_batched(
+    grids: Mapping,  # scene -> (W, H, D) uint8 labels on the device; updated in place
+    scene_jobs: Mapping,  # scene -> job list from _collect_guided_jobs
+) -> Mapping:
+    """Apply every scene's guided windows in a few sets of launches.
+
+    Every window's carve decision reads only its own component's occupancy
+    (the labels taken before any window ran are exact: a part's carve erases
+    only its own voxels), so the decisions of all windows of one sweep angle
+    are computed at once, ``_GUIDED_BATCH_ELEMS`` plane elements at a time.
+    The write-backs only erase, each inside its own component, so no order
+    of them can bring back a voxel that another window erased."""
+    by_angle: Dict[int, list] = {}
+    for scene, jobs in scene_jobs.items():
+        for j in jobs:
+            by_angle.setdefault(j["angle"], []).append((scene, j))
+    for angle, items in sorted(by_angle.items()):
+        for chunk in _job_chunks(items):
+            device = grids[chunk[0][0]].device
+            erases = _guided_erases([j for _, j in chunk], angle, device)
+            for (scene, j), erase in zip(chunk, erases):
+                (x0, y0, z0), (w, h, d) = j["start"], j["comp"].shape
+                grids[scene][x0:x0 + w, y0:y0 + h, z0:z0 + d].masked_fill_(erase, 0)
+    return grids
 
 
 def guided_carve_all(
@@ -92,29 +225,17 @@ def guided_carve_all(
     exterior_labels: np.ndarray,
     part_symmetry,
 ) -> torch.Tensor:
-    """Component-guided carving for every part in ``part_symmetry``.
+    """Component-guided carving of one scene for every part in
+    ``part_symmetry``.
 
     The grid is downloaded ONCE; component labelling and stats run on the
-    host (exact scipy).  Only per-window component crops are uploaded.
+    host (exact scipy).  Only the components' window crops are uploaded.
     Updates ``grid`` in place and returns it.
     """
-    parts = [
-        (p, a) for p, a in part_symmetry
-        if (exterior_labels == PART_IDS[p]).any()
-    ]
-    if not parts:
+    if not any((exterior_labels == PART_IDS[p]).any() for p, _ in part_symmetry):
         return grid
-    grid_host = grid.cpu().numpy()
-    for part, angle in parts:
-        target = PART_IDS[part]
-        comp_true, n = _host_scipy_label(grid_host == target, "face")
-        if n == 0:
-            continue
-        stats = _host_component_stats(comp_true, n, centroid_axes=())
-        grid = _guided_windows_for_part(
-            grid, comp_true, n, stats, exterior_labels == target, int(angle)
-        )
-    return grid
+    jobs = _collect_guided_jobs(grid.cpu().numpy(), exterior_labels, part_symmetry)
+    return guided_carve_batched({0: grid}, {0: jobs})[0]
 
 
 def _extrude_all(
@@ -212,6 +333,38 @@ def _reorient(g: torch.Tensor) -> torch.Tensor:
     return torch.flip(g.permute(2, 1, 0), (1,))
 
 
+def _preset_sweeps(preset: config.CarvePreset):
+    """(group label ids, extrusion jobs) of a preset the fused path supports."""
+    angles = {angle for _, angle in preset.group_jobs}
+    if angles != {preset.global_angle_interval}:
+        raise NotImplementedError(
+            "fused stage 1 assumes group angles == global angle; "
+            "use pbr3d_torch.carving.stage1 for exotic presets"
+        )
+    group_ids = tuple(tuple(int(i) for i in config.part_ids(names)) for names, _ in preset.group_jobs)
+    return group_ids, tuple((PART_IDS[p], int(depth)) for p, depth in preset.extrusion_depths)
+
+
+def _finish_scene(grid: torch.Tensor, mask_set, preset: config.CarvePreset) -> np.ndarray:
+    """Phases 2-4 of one scene from its global + group carve ``grid``
+    (W, H, D), which may come from another thread's stream; returns the host
+    grid, reoriented and recoloured."""
+    adopt(grid)
+    with prof("stage1.guided"):
+        grid = guided_carve_all(grid, mask_set.exterior_labels, preset.part_symmetry)
+    jobs = _preset_sweeps(preset)[1]
+    if jobs:
+        sem_wh = torch.from_numpy(np.ascontiguousarray(mask_set.semantic_labels.T)).to(grid.device)
+        with prof("stage1.extrude"):
+            grid = _extrude_all(grid, sem_wh, jobs)
+    if not preset.recolor_back_minarets:
+        return grid.cpu().numpy()
+    with prof("stage1.download_reorient"):
+        host = _reorient(grid).cpu().numpy()
+    with prof("stage1.recolor", sync=False):
+        return recolor_back_host(host)
+
+
 def carve_monument_fused(
     mask_set,
     preset: config.CarvePreset = config.DEFAULT_CARVE_PRESET,
@@ -221,39 +374,82 @@ def carve_monument_fused(
     """Full stage 1 for one monument on ``device``.  Returns the uint8 label
     grid as host numpy, true extent, reoriented frame — identical to
     ``pbr3d.carving.fused.carve_monument_fused``."""
-    binary = mask_set.binary  # (h, w)
-    ext = mask_set.exterior_labels
-    sem = mask_set.semantic_labels
-    h, w = binary.shape
-
-    group_ids = tuple(
-        tuple(int(i) for i in config.part_ids(names))
-        for names, angle in preset.group_jobs
-    )
-    angles = {angle for _, angle in preset.group_jobs}
-    if angles != {preset.global_angle_interval}:
-        raise NotImplementedError(
-            "fused stage 1 assumes group angles == global angle; "
-            "use pbr3d_torch.carving.stage1 for exotic presets"
-        )
-
-    def wh(m):
-        return torch.from_numpy(np.ascontiguousarray(m.T)).to(device)
-
+    group_ids = _preset_sweeps(preset)[0]
     with prof("stage1.sweep"):
-        plans = plans_to_device(_stacked_plans(w, w, preset.global_angle_interval), device)
-        grid = _global_and_part_carve(wh(binary), wh(ext), plans, group_ids)
-    with prof("stage1.guided"):
-        grid = guided_carve_all(grid, ext, preset.part_symmetry)
+        grid, = _global_and_part_carve([mask_set], preset.global_angle_interval, group_ids, device)
+    return _finish_scene(grid, mask_set, preset)
 
-    jobs = tuple((PART_IDS[p], int(depth)) for p, depth in preset.extrusion_depths)
-    if jobs:
-        with prof("stage1.extrude"):
-            grid = _extrude_all(grid, wh(sem), jobs)
 
-    if not preset.recolor_back_minarets:
-        return grid.cpu().numpy()
-    with prof("stage1.download_reorient"):
-        host = _reorient(grid).cpu().numpy()
-    with prof("stage1.recolor", sync=False):
-        return recolor_back_host(host)
+def _sweep_working_set(mask_sets) -> int:
+    """Bytes the stacked global + group carve of these scenes keeps alive at
+    its peak: ``_SWEEP_BYTES_PER_ELEM`` per element of the side-by-side plane
+    (max H x sum of W*D), plus its int64 gather plan (4 corners x 8 bytes per
+    column for the one non-zero sweep angle of the default preset)."""
+    hs, ws = zip(*(ms.binary.shape for ms in mask_sets))
+    columns = sum(w * w for w in ws)
+    return _SWEEP_BYTES_PER_ELEM * max(hs) * columns + 4 * 8 * columns
+
+
+def carve_monuments_batched(
+    mask_sets: Mapping,
+    preset: config.CarvePreset = config.DEFAULT_CARVE_PRESET,
+    mem_budget_bytes: Optional[int] = None,
+    on_grid: Optional[Callable[[str, np.ndarray], None]] = None,
+    *,
+    device,
+) -> Dict[str, np.ndarray]:
+    """Stage 1 for MANY monuments on ``device``; ``{monument: MaskSet}`` in,
+    ``{monument: label grid}`` out, each grid bit-identical to
+    :func:`carve_monument_fused`'s.
+
+    When the side-by-side plane of all scenes fits ``mem_budget_bytes`` of
+    sweep working set (:func:`_sweep_working_set`; default: half of the
+    card's free memory, ``_CPU_SWEEP_BUDGET`` on a CPU device), the global +
+    group carves of all scenes run as one set of launches; else each scene
+    sweeps on its own.  Either way two worker threads, each on a CUDA stream
+    of its own, take the scenes through their remaining phases, so scene i's
+    host work (component labelling, recolour, downloads) overlaps scene
+    i+1's device work; one worker when two scenes' sweeps would not fit.
+
+    ``on_grid(monument, grid)`` is called in the caller's thread, in the
+    order of ``mask_sets``, as each scene finalizes, so per-scene downstream
+    work can start while the remaining scenes finish."""
+    names = list(mask_sets)
+    if not names:
+        return {}
+    device = torch.device(device)
+    if mem_budget_bytes is None:
+        mem_budget_bytes = (torch.cuda.mem_get_info(device)[0] // 2 if device.type == "cuda"
+                            else _CPU_SWEEP_BUDGET)
+    group_ids = _preset_sweeps(preset)[0]
+    sets = [mask_sets[m] for m in names]
+    workers = 2
+    if _sweep_working_set(sets) <= mem_budget_bytes:
+        with prof("stage1.sweep"):
+            grids = _global_and_part_carve(sets, preset.global_angle_interval, group_ids, device)
+        tasks = [lambda g=g, ms=ms: _finish_scene(g, ms, preset) for g, ms in zip(grids, sets)]
+        del grids
+    else:
+        tasks = [lambda ms=ms: carve_monument_fused(ms, preset, device=device) for ms in sets]
+        if 2 * max(_sweep_working_set([ms]) for ms in sets) > mem_budget_bytes:
+            workers = 1
+
+    submitter = torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+    def run(task):
+        with worker_stream(device, after=submitter):
+            return task()
+
+    out = {}
+    with ThreadPoolExecutor(max_workers=min(workers, len(names))) as ex:
+        futs = [ex.submit(run, task) for task in tasks]
+        del tasks
+        try:
+            for m, fut in zip(names, futs):
+                out[m] = fut.result()
+                if on_grid is not None:
+                    on_grid(m, out[m])
+        except BaseException:
+            ex.shutdown(wait=True, cancel_futures=True)
+            raise
+    return out

@@ -148,8 +148,9 @@ def project_points(
     cy,
     z_clamp: float = 1e-8,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project (N, 3) points; returns (u, v, Z_cam), Z clamped to ``z_clamp``
-    exactly like the reference's vectorized splat path
+    """Project (N, 3) points (or point sets ``(..., N, 3)`` whose leading
+    dimensions broadcast against the cameras'); returns (u, v, Z_cam), Z
+    clamped to ``z_clamp`` exactly like the reference's vectorized splat path
     (utils/projection_utils.py:9-14)."""
     pts = pts.to(torch.float32)
-    return project_points_soa(pts[:, 0], pts[:, 1], pts[:, 2], cam_pos, target, f, cx, cy, z_clamp)
+    return project_points_soa(pts[..., 0], pts[..., 1], pts[..., 2], cam_pos, target, f, cx, cy, z_clamp)

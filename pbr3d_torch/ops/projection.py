@@ -34,13 +34,15 @@ from pbr3d_torch.ops.cameramath import project_points, project_points_soa
 
 
 def _pixel_index(
-    u: torch.Tensor, v: torch.Tensor, valid, H: int, W: int
+    u: torch.Tensor, v: torch.Tensor, valid, H: int, W: int, true_hw=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Round to integer pixels (half to even, as ``jnp.round``); returns
     (int64 flat index with dump bucket H*W, in-bounds mask).  Bounds are
-    tested on the rounded floats, so no cast can overflow."""
+    tested on the rounded floats, so no cast can overflow; ``true_hw`` gives
+    them as tensors where planes of several sizes share one (H, W) allocation."""
     ur, vr = torch.round(u), torch.round(v)
-    ok = (ur >= 0) & (ur < W) & (vr >= 0) & (vr < H)
+    Ht, Wt = (H, W) if true_hw is None else true_hw
+    ok = (ur >= 0) & (ur < Wt) & (vr >= 0) & (vr < Ht)
     if valid is not None:
         ok = ok & valid
     pix = torch.where(ok, vr.to(torch.int64) * W + ur.to(torch.int64), H * W)
@@ -60,12 +62,19 @@ def splat_labels(
     point_valid,
     cam_pos, target, f, cx, cy,
     H: int, W: int,
+    true_hw=None,
 ) -> torch.Tensor:
     """Project labelled points to a ``(..., H, W)`` uint8 label image,
-    last write wins.  ``pts (N, 3)`` float32, ``labels (N,)`` uint8."""
-    N = pts.shape[0]
+    last write wins.  ``pts (N, 3)`` float32, ``labels (N,)`` uint8.
+
+    Several point sets at once, each under its own cameras: ``pts
+    (V, 1, N, 3)``, ``labels`` and ``point_valid (V, 1, N)`` (sets shorter
+    than N padded with invalid points) against cameras ``(V, P)``, with
+    ``true_hw = (Ht, Wt)``, each ``(V, 1, 1)``, the image bounds of each set
+    inside the shared ``(H, W)`` plane."""
+    N = pts.shape[-2]
     u, v, _ = project_points(pts, cam_pos, target, f, cx, cy)
-    pix, ok = _pixel_index(u, v, point_valid, H, W)
+    pix, ok = _pixel_index(u, v, point_valid, H, W, true_hw)
     key = torch.arange(N, dtype=torch.int64, device=pts.device) * 256 + labels.to(torch.int64)
     win = _segment(torch.where(ok, key, -1), pix, H * W + 1, "amax", -1)[..., : H * W]
     img = torch.where(win >= 0, win % 256, 0).to(torch.uint8)
@@ -177,7 +186,8 @@ def partwise_iou(
     part_ids,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Colour-exact per-part IoU ``(..., K)`` and its mean ``(...)`` between
-    ``(..., H, W)`` label planes and one ``(H, W)`` ground truth (reference:
+    ``(..., H, W)`` label planes and one ``(H, W)`` ground truth, or ground
+    truths whose leading dimensions broadcast against the planes' (reference:
     camera_estimation.py:770-788).  A part with an empty union scores 0.0.
     The mean is the JAX package's: the left-to-right sum times the float32
     reciprocal of K (XLA turns ``jnp.mean``'s division into that product)."""
@@ -185,7 +195,7 @@ def partwise_iou(
     K = part_ids.shape[0]
     hw = gt_labels.shape[-2] * gt_labels.shape[-1]
     p = proj_labels.reshape(*proj_labels.shape[:-2], 1, hw) == part_ids
-    g = gt_labels.reshape(1, hw) == part_ids
+    g = gt_labels.reshape(*gt_labels.shape[:-2], 1, hw) == part_ids
     inter = (p & g).sum(dim=-1).to(torch.float32)
     union = (p | g).sum(dim=-1).to(torch.float32)
     iou = torch.where(union > 0, inter / union.clamp_min(1.0), torch.zeros_like(union))

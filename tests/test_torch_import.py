@@ -20,6 +20,8 @@ MODULES = [
     "pbr3d_torch.ops.cuda_kernels",
     "pbr3d_torch.ops.neighbors",
     "pbr3d_torch.utils.profiling",
+    "pbr3d_torch.utils.streams",
+    "pbr3d_torch.eval.gates",
     "pbr3d_torch.carving.stage1",
     "pbr3d_torch.carving.fused",
     "pbr3d_torch.carving.voxel",

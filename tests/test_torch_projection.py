@@ -15,7 +15,7 @@ import torch
 
 from pbr3d.ops import cameramath as jcm
 from pbr3d.ops import projection as jproj
-from pbr3d_torch.camera.align import _search
+from pbr3d_torch.camera.align import _search_one
 from pbr3d_torch.ops import cameramath as tcm
 from pbr3d_torch.ops import projection as tproj
 
@@ -229,8 +229,8 @@ def test_argmax_ties_pick_the_first_like_jax():
     u[0, :, 7] = 0.5  # cx + 10: misses
     u[0, [1, 3, 4], 7] = -0.05  # cx - 1: hits
     u[0, [1, 3, 4], 8] = [0.0, 0.001, 0.002]  # cy + 0, 0.02, 0.04: still hits
-    best, biou = _search(torch.from_numpy(x0), pts, torch.tensor([5], dtype=torch.uint8), gt, [5],
-                         16, 16, torch.from_numpy(u), 0, False, 8)
+    best, biou = _search_one(torch.from_numpy(x0), pts, torch.tensor([5], dtype=torch.uint8), gt, [5],
+                             torch.from_numpy(u), 0, False, 8)
     steps = np.array([50, 50, 100, 50, 50, 100, 50, 20, 20], np.float64)
     expect = (x0 + u[0, 1].astype(np.float64) * steps).astype(np.float32)
     assert float(biou) == 1.0
