@@ -338,8 +338,9 @@ def _preset_sweeps(preset: config.CarvePreset):
     angles = {angle for _, angle in preset.group_jobs}
     if angles != {preset.global_angle_interval}:
         raise NotImplementedError(
-            "fused stage 1 assumes group angles == global angle; "
-            "use pbr3d_torch.carving.stage1 for exotic presets"
+            "fused stage 1 assumes group angles == global angle; the port has no "
+            "route yet for presets whose group angles differ (the JAX package's "
+            "pbr3d.carving.stage1.carve_monument takes them)"
         )
     group_ids = tuple(tuple(int(i) for i in config.part_ids(names)) for names, _ in preset.group_jobs)
     return group_ids, tuple((PART_IDS[p], int(depth)) for p, depth in preset.extrusion_depths)

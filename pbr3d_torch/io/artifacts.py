@@ -29,9 +29,14 @@ def save_voxel_grid(path: str | Path, labels: np.ndarray) -> None:
     np.savez_compressed(path, voxel_grid=labels_to_rgb(np.asarray(labels)))
 
 
+def load_voxel_grid_rgb(path: str | Path) -> np.ndarray:
+    """uint8 (W,H,D,3) RGB voxel grid (reference: eval_helpers_intra.py:19-23)."""
+    return np.load(path)["voxel_grid"]
+
+
 def load_voxel_grid_labels(path: str | Path) -> np.ndarray:
     """uint8 (W,H,D) label grid (non-palette colors -> OTHER_ID, none expected)."""
-    return rgb_to_labels(np.load(path)["voxel_grid"])
+    return rgb_to_labels(load_voxel_grid_rgb(path))
 
 
 def _to_json_safe(obj):

@@ -2,18 +2,22 @@
 ``pbr3d.ops.pallas_kernels``.
 
 ``min_dist2_kernel`` replaces ``pbr3d.ops.pallas_kernels._min_dist2_kernel``
-(see ``pbr3d_torch/csrc/min_dist2.cu`` for its design).  The kernels are
-built from ``pbr3d_torch/csrc/`` at first use by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface, under
-``build/torch_kernels/`` at the root of the checkout, and called through
-``ctypes``.  The library is rebuilt only when a hash of the sources and
+(see ``pbr3d_torch/csrc/min_dist2.cu`` for its design); ``knn_kernel`` is
+the k-nearest-neighbour kernel of the same family
+(``pbr3d_torch/csrc/knn.cu``), which replaces the XLA program
+``pbr3d.ops.neighbors._knn_padded``.  The kernels are built from
+``pbr3d_torch/csrc/`` at first use by ``nvcc`` for ``sm_90a`` (one compile
+per source, all started together, then one link) into a shared library with
+a plain C interface, under ``build/torch_kernels/`` at the root of the
+checkout, and called through ``ctypes``.  The library is rebuilt only when a hash of the sources and
 flags changes.  Nothing is built or loaded when this module is imported.
 
 Beside each kernel sits its plain PyTorch version, which the CPU tests use
-and the on-card smoke compares the kernel against.  The kernel wrapper
+and the on-card smoke compares the kernel against.  A kernel wrapper
 accepts CUDA tensors only and raises on anything else, and on a failed
-build or launch; choosing the plain version for CPU tensors is
-:func:`pbr3d_torch.ops.neighbors.min_dist2`'s job.
+build or launch; choosing the plain version for CPU tensors is the job of
+:func:`pbr3d_torch.ops.neighbors.min_dist2` and
+:func:`pbr3d_torch.ops.neighbors.knn2`.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("min_dist2.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+_SOURCES = ("min_dist2.cu", "knn.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Queries one block of the kernel covers (128 threads x 8 queries), and the
@@ -66,12 +70,31 @@ def load_extension() -> ctypes.CDLL:
         if CUDA_HOME is None:
             raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        res = subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o", str(tmp),
-                              *map(str, sources)], capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"nvcc failed with {res.returncode}:\n{res.stdout}{res.stderr}")
-        log_path.write_text(res.stdout + res.stderr)
+        objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                    for src, obj in zip(sources, objects)]
+        log = ""
+        try:
+            for src, proc in zip(sources, compiles):
+                text = proc.communicate()[0]
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed with {proc.returncode} on {src.name}:\n{text}")
+                log += text
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objects)],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"nvcc link failed with {res.returncode}:\n{res.stdout}{res.stderr}")
+        finally:
+            for proc in compiles:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+        log_path.write_text(log + res.stdout + res.stderr)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     lib.pbr3d_min_dist2.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P]
@@ -84,6 +107,14 @@ def load_extension() -> ctypes.CDLL:
     if got != (QUERIES_PER_BLOCK, B_STEP):
         raise RuntimeError(f"{lib_path.name}: queries per block and B step {got}, "
                            f"expected {(QUERIES_PER_BLOCK, B_STEP)}")
+    lib.pbr3d_knn.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P, _I32, _P, _P, _P]
+    lib.pbr3d_knn.restype = _I32
+    lib.pbr3d_knn_capacity.argtypes = [_I32]
+    got = (lib.pbr3d_knn_queries_per_block(), lib.pbr3d_knn_b_step(),
+           tuple(lib.pbr3d_knn_capacity(k) for k in (1, 3, 20, KNN_MAX_K, KNN_MAX_K + 1)))
+    want = (KNN_QUERIES_PER_BLOCK, KNN_B_STEP, tuple(map(knn_capacity, (1, 3, 20, KNN_MAX_K))) + (0,))
+    if got != want:
+        raise RuntimeError(f"{lib_path.name}: knn's block, step and capacities {got}, expected {want}")
     lib.build_log = log_path.read_text() if log_path.exists() else ""
     return lib
 
@@ -196,3 +227,102 @@ def min_dist2_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         d += (a[:, 2:3] - bz).square_()
         out[i0 : i0 + rows] = d.amin(dim=1)
     return out
+
+
+#: The k-nearest-neighbour kernel: queries per block, B points per step, the
+#: list capacities it is compiled for, the blocks a launch should have at the
+#: least (eight a streaming multiprocessor on an H100), and the B points per
+#: chunk at the least; the library is checked against the first three.
+KNN_QUERIES_PER_BLOCK = 128
+KNN_B_STEP = 4
+KNN_CAPACITIES = (1, 2, 4, 8, 16, 20, 32)
+KNN_MAX_K = KNN_CAPACITIES[-1]
+KNN_MIN_BLOCKS = 132 * 8
+KNN_MIN_CHUNK = 2048
+KNN_MAX_CHUNKS = 64
+
+
+def knn_capacity(k: int) -> int:
+    """The kernel's list capacity for k neighbours."""
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"k must be in 1..{KNN_MAX_K}, got {k}")
+    return next(c for c in KNN_CAPACITIES if k <= c)
+
+
+def knn_launch_plan(n: int, m: int) -> tuple:
+    """(m_pad, chunk_len, chunks) of the knn kernel for n queries and m > 0
+    points of B: B splits into as many chunks as bring the grid to
+    ``KNN_MIN_BLOCKS`` blocks, no chunk shorter than ``KNN_MIN_CHUNK``."""
+    m_pad = -(-m // KNN_B_STEP) * KNN_B_STEP
+    blocks = -(-n // KNN_QUERIES_PER_BLOCK)
+    want = min(-(-KNN_MIN_BLOCKS // blocks), max(1, m_pad // KNN_MIN_CHUNK), KNN_MAX_CHUNKS)
+    chunk_len = -(-(-(-m_pad // want)) // KNN_B_STEP) * KNN_B_STEP
+    return m_pad, chunk_len, -(-m_pad // chunk_len)
+
+
+def _redirect_unreachable(d2: torch.Tensor, idx: torch.Tensor):
+    """Entries at an infinite distance point at the nearest neighbour."""
+    return torch.where(torch.isfinite(d2), idx, idx[:, :1])
+
+
+def knn_kernel(A: torch.Tensor, B: torch.Tensor, k: int):
+    """The k smallest |A[i] - B[j]|² and their j for A (N, 3), B (M, 3)
+    contiguous float32 CUDA tensors on one device, 1 <= k <= ``KNN_MAX_K``:
+    (N, k) float32 squared distances ascending and (N, k) int64 indices,
+    exact ties to the lower index.  Where k > M the trailing distances are
+    +inf and their indices the nearest neighbour's (0 where M = 0).  Launches
+    on the current stream without synchronising; N = 0 or M = 0 launches
+    nothing."""
+    _check_points(A, "A")
+    _check_points(B, "B")
+    if A.device != B.device:
+        raise ValueError(f"A is on {A.device}, B on {B.device}")
+    cap = knn_capacity(k)
+    n, m = A.shape[0], B.shape[0]
+    d2 = torch.full((n, k), float("inf"), dtype=torch.float32, device=A.device)
+    idx = torch.zeros((n, k), dtype=torch.int64, device=A.device)
+    if n == 0 or m == 0:
+        return d2, idx
+    lib = load_extension()
+    m_pad, chunk_len, chunks = knn_launch_plan(n, m)
+    B4 = torch.empty((m_pad, 4), dtype=torch.float32, device=A.device)  # packed by the call
+    part_d = torch.empty((chunks, cap, n), dtype=torch.float32, device=A.device)
+    part_i = torch.empty((chunks, cap, n), dtype=torch.int32, device=A.device)
+    with torch.cuda.device(A.device):
+        err = lib.pbr3d_knn(A.data_ptr(), n, B.data_ptr(), m, B4.data_ptr(), m_pad, chunk_len,
+                            part_d.data_ptr(), part_i.data_ptr(), k, d2.data_ptr(), idx.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "knn launch")
+    knn_kernel.launches += 1
+    return d2, idx
+
+
+knn_kernel.launches = 0
+
+
+def knn_plain(A: torch.Tensor, B: torch.Tensor, k: int):
+    """Plain PyTorch version of :func:`knn_kernel`: the same direct
+    difference tiled over A, then the k smallest of the int64 keys
+    ``distance bits << 32 | index`` (a non-negative float32 orders as its
+    bits, and the index breaks exact ties, which ``torch.topk`` on the
+    distances alone would not promise)."""
+    n, m = A.shape[0], B.shape[0]
+    d2 = torch.full((n, k), float("inf"), dtype=torch.float32, device=A.device)
+    idx = torch.zeros((n, k), dtype=torch.int64, device=A.device)
+    if n == 0 or m == 0:
+        return d2, idx
+    kk = min(k, m)
+    rows = max(1, _PLAIN_PAIRS // m)
+    bx, by, bz = (B[:, c][None, :] for c in range(3))
+    col = torch.arange(m, dtype=torch.int64, device=A.device)[None, :]
+    for i0 in range(0, n, rows):
+        a = A[i0 : i0 + rows]
+        d = (a[:, 0:1] - bx).square_()
+        d += (a[:, 1:2] - by).square_()
+        d += (a[:, 2:3] - bz).square_()
+        key = (d.view(torch.int32).to(torch.int64) << 32) | col
+        best = (key.amin(dim=1, keepdim=True) if kk == 1
+                else torch.topk(key, kk, dim=1, largest=False, sorted=True).values)
+        d2[i0 : i0 + rows, :kk] = (best >> 32).to(torch.int32).view(torch.float32)
+        idx[i0 : i0 + rows, :kk] = best & 0xFFFFFFFF
+    return d2, _redirect_unreachable(d2, idx)

@@ -158,3 +158,10 @@ def test_guided_windows_in_chunks_and_across_scenes(scenes, monkeypatch):
         assert out[m] is grids[m]
         np.testing.assert_array_equal(out[m].numpy(), alone[m].numpy())
         assert int((before[m] != out[m]).sum()) > 0
+
+
+def test_refusal_of_a_preset_with_other_group_angles_names_no_missing_route():
+    preset = config.CarvePreset(group_jobs=((("full_building",), 45),))
+    with pytest.raises(NotImplementedError, match="no route yet") as err:
+        torch_fused._preset_sweeps(preset)
+    assert "pbr3d_torch.carving.stage1" not in str(err.value)

@@ -1,7 +1,7 @@
-"""pbr3d_torch and chip_smoke import with jax, cv2 and the JAX package
-unavailable (the card's machine has neither jax nor cv2, and the port keeps
-its own copies of what it needs from ``pbr3d``), and build no kernel on
-import."""
+"""pbr3d_torch and chip_smoke import with jax, cv2, pandas, tabulate and the
+JAX package unavailable (the card's machine has none of the first four, and
+the port keeps its own copies of what it needs from ``pbr3d``), and build no
+kernel on import."""
 
 import subprocess
 import sys
@@ -33,6 +33,11 @@ MODULES = [
     "pbr3d_torch.camera.estimate",
     "pbr3d_torch.camera.align",
     "pbr3d_torch.eval.inter",
+    "pbr3d_torch.ops.morphology",
+    "pbr3d_torch.ops.isosurface",
+    "pbr3d_torch.io.pointcloud",
+    "pbr3d_torch.eval.preprocess",
+    "pbr3d_torch.eval.intra",
     "pbr3d_torch.ops.point_table",
     "pbr3d_torch.deform",
     "pbr3d_torch.deform.warp",
@@ -48,9 +53,11 @@ import importlib, sys
 sys.modules["jax"] = None
 sys.modules["cv2"] = None
 sys.modules["pbr3d"] = None
+sys.modules["pandas"] = None
+sys.modules["tabulate"] = None
 for name in {MODULES!r}:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "pbr3d")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "pbr3d", "pandas", "tabulate")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 from pbr3d_torch.ops.cuda_kernels import load_extension
