@@ -110,11 +110,15 @@ def load_extension() -> ctypes.CDLL:
     lib.pbr3d_knn.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P, _I32, _P, _P, _P]
     lib.pbr3d_knn.restype = _I32
     lib.pbr3d_knn_capacity.argtypes = [_I32]
-    got = (lib.pbr3d_knn_queries_per_block(), lib.pbr3d_knn_b_step(),
+    lib.pbr3d_knn_queries_per_block.argtypes = [_I32]
+    lib.pbr3d_knn_blocks_per_sm.argtypes = [_I32, ctypes.POINTER(_I32)]
+    lib.pbr3d_knn_blocks_per_sm.restype = _I32
+    got = (lib.pbr3d_knn_b_step(), tuple(lib.pbr3d_knn_queries_per_block(c) for c in KNN_CAPACITIES),
            tuple(lib.pbr3d_knn_capacity(k) for k in (1, 3, 20, KNN_MAX_K, KNN_MAX_K + 1)))
-    want = (KNN_QUERIES_PER_BLOCK, KNN_B_STEP, tuple(map(knn_capacity, (1, 3, 20, KNN_MAX_K))) + (0,))
+    want = (KNN_B_STEP, tuple(map(knn_queries_per_block, KNN_CAPACITIES)),
+            tuple(map(knn_capacity, (1, 3, 20, KNN_MAX_K))) + (0,))
     if got != want:
-        raise RuntimeError(f"{lib_path.name}: knn's block, step and capacities {got}, expected {want}")
+        raise RuntimeError(f"{lib_path.name}: knn's step, blocks and capacities {got}, expected {want}")
     lib.build_log = log_path.read_text() if log_path.exists() else ""
     return lib
 
@@ -133,19 +137,21 @@ class LaunchPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_plan(n: int, m: int, sm_count: int, blocks_per_sm: int) -> LaunchPlan:
-    """Grid of the min-dist kernel for n queries and m > 0 points of B.
+def _launch_plan(n: int, m: int, sm_count: int, blocks_per_sm: int,
+                 queries_per_block: int = QUERIES_PER_BLOCK, b_step: int = B_STEP) -> LaunchPlan:
+    """Grid of a kernel of the min-dist family for n queries and m > 0 points
+    of B (by default the min-dist kernel's blocks and step).
 
     Takes the fewest chunks whose grid fills at least ``WAVE_FILL`` of the
     card's slots (SMs x resident blocks per SM) over its waves, counting a
     chunk shorter than ``chunk_len`` as idle slots; where none does (small
     problems), the chunking that fills most."""
-    tiles = -(-n // QUERIES_PER_BLOCK)
-    m_pad = -(-m // B_STEP) * B_STEP
+    tiles = -(-n // queries_per_block)
+    m_pad = -(-m // b_step) * b_step
     slots = sm_count * blocks_per_sm
     best_fill, best = -1.0, None
     for c in range(1, max(1, min(MAX_CHUNKS, m_pad // MIN_CHUNK)) + 1):
-        chunk_len = -(-(-(-m_pad // c)) // B_STEP) * B_STEP  # ceil(m_pad / c), up to B_STEP
+        chunk_len = -(-(-(-m_pad // c)) // b_step) * b_step  # ceil(m_pad / c), up to b_step
         chunks = -(-m_pad // chunk_len)
         waves = -(-tiles * chunks // slots)
         fill = tiles * m_pad / (waves * slots * chunk_len)
@@ -229,17 +235,14 @@ def min_dist2_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return out
 
 
-#: The k-nearest-neighbour kernel: queries per block, B points per step, the
-#: list capacities it is compiled for, the blocks a launch should have at the
-#: least (eight a streaming multiprocessor on an H100), and the B points per
-#: chunk at the least; the library is checked against the first three.
-KNN_QUERIES_PER_BLOCK = 128
-KNN_B_STEP = 4
-KNN_CAPACITIES = (1, 2, 4, 8, 16, 20, 32)
+#: The k-nearest-neighbour kernel: threads per block, queries a thread holds
+#: at each list capacity it is compiled for, and B points per step; the
+#: library is checked against all three.
+KNN_THREADS = 128
+KNN_QUERIES_PER_THREAD = {1: 8, 2: 4, 4: 4, 8: 2, 16: 2, 20: 2, 32: 1}
+KNN_CAPACITIES = tuple(KNN_QUERIES_PER_THREAD)
 KNN_MAX_K = KNN_CAPACITIES[-1]
-KNN_MIN_BLOCKS = 132 * 8
-KNN_MIN_CHUNK = 2048
-KNN_MAX_CHUNKS = 64
+KNN_B_STEP = 8
 
 
 def knn_capacity(k: int) -> int:
@@ -249,15 +252,28 @@ def knn_capacity(k: int) -> int:
     return next(c for c in KNN_CAPACITIES if k <= c)
 
 
-def knn_launch_plan(n: int, m: int) -> tuple:
-    """(m_pad, chunk_len, chunks) of the knn kernel for n queries and m > 0
-    points of B: B splits into as many chunks as bring the grid to
-    ``KNN_MIN_BLOCKS`` blocks, no chunk shorter than ``KNN_MIN_CHUNK``."""
-    m_pad = -(-m // KNN_B_STEP) * KNN_B_STEP
-    blocks = -(-n // KNN_QUERIES_PER_BLOCK)
-    want = min(-(-KNN_MIN_BLOCKS // blocks), max(1, m_pad // KNN_MIN_CHUNK), KNN_MAX_CHUNKS)
-    chunk_len = -(-(-(-m_pad // want)) // KNN_B_STEP) * KNN_B_STEP
-    return m_pad, chunk_len, -(-m_pad // chunk_len)
+def knn_queries_per_block(capacity: int) -> int:
+    """Queries one block of the knn kernel covers at a list capacity."""
+    return KNN_THREADS * KNN_QUERIES_PER_THREAD[capacity]
+
+
+def knn_launch_plan(n: int, m: int, capacity: int, sm_count: int, blocks_per_sm: int) -> LaunchPlan:
+    """Grid of the knn kernel at a list capacity for n queries and m > 0
+    points of B on a card of ``sm_count`` SMs that holds ``blocks_per_sm``
+    blocks of that instantiation: the min-dist kernel's rule."""
+    return _launch_plan(n, m, sm_count, blocks_per_sm, knn_queries_per_block(capacity), KNN_B_STEP)
+
+
+@functools.cache
+def _knn_card_slots(index: int, capacity: int) -> tuple:
+    """(SMs, resident blocks of the knn kernel per SM at a capacity) of a card."""
+    lib = load_extension()
+    blocks = _I32(0)
+    with torch.cuda.device(index):
+        _raise_on(lib.pbr3d_knn_blocks_per_sm(capacity, ctypes.byref(blocks)), "occupancy query")
+    if blocks.value < 1:
+        raise RuntimeError(f"the knn kernel at capacity {capacity} fits no block on an SM")
+    return torch.cuda.get_device_properties(index).multi_processor_count, blocks.value
 
 
 def _redirect_unreachable(d2: torch.Tensor, idx: torch.Tensor):
@@ -279,25 +295,30 @@ def knn_kernel(A: torch.Tensor, B: torch.Tensor, k: int):
         raise ValueError(f"A is on {A.device}, B on {B.device}")
     cap = knn_capacity(k)
     n, m = A.shape[0], B.shape[0]
-    d2 = torch.full((n, k), float("inf"), dtype=torch.float32, device=A.device)
-    idx = torch.zeros((n, k), dtype=torch.int64, device=A.device)
     if n == 0 or m == 0:
-        return d2, idx
+        return (torch.full((n, k), float("inf"), dtype=torch.float32, device=A.device),
+                torch.zeros((n, k), dtype=torch.int64, device=A.device))
     lib = load_extension()
-    m_pad, chunk_len, chunks = knn_launch_plan(n, m)
-    B4 = torch.empty((m_pad, 4), dtype=torch.float32, device=A.device)  # packed by the call
-    part_d = torch.empty((chunks, cap, n), dtype=torch.float32, device=A.device)
-    part_i = torch.empty((chunks, cap, n), dtype=torch.int32, device=A.device)
+    plan = knn_launch_plan(n, m, cap, *_knn_card_slots(A.device.index, cap))
+    d2 = torch.empty((n, k), dtype=torch.float32, device=A.device)
+    idx = torch.empty((n, k), dtype=torch.int64, device=A.device)
+    B4 = torch.empty((plan.m_pad, 4), dtype=torch.float32, device=A.device)  # packed by the call
+    # the chunk lists; k = 1 merges by atomicMin in idx instead
+    parts = [torch.empty((plan.chunks, cap, n), dtype=dt, device=A.device)
+             for dt in (torch.float32, torch.int32)] if cap > 1 else []
     with torch.cuda.device(A.device):
-        err = lib.pbr3d_knn(A.data_ptr(), n, B.data_ptr(), m, B4.data_ptr(), m_pad, chunk_len,
-                            part_d.data_ptr(), part_i.data_ptr(), k, d2.data_ptr(), idx.data_ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+        err = lib.pbr3d_knn(A.data_ptr(), n, B.data_ptr(), m, B4.data_ptr(), plan.m_pad,
+                            plan.chunk_len, *([t.data_ptr() for t in parts] or [None, None]), k,
+                            d2.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "knn launch")
     knn_kernel.launches += 1
+    knn_kernel.pairs[cap] = knn_kernel.pairs.get(cap, 0) + n * m
     return d2, idx
 
 
 knn_kernel.launches = 0
+#: capacity -> (query, point) pairs of the launches since the last clear
+knn_kernel.pairs = {}
 
 
 def knn_plain(A: torch.Tensor, B: torch.Tensor, k: int):

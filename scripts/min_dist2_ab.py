@@ -21,9 +21,7 @@ as JSON.  Needs one card.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -41,15 +39,6 @@ from pbr3d_torch.ops.cuda_kernels import min_dist2_plain  # noqa: E402
 MAIN_PATH_LAUNCHES = {(20000, 20000): 4, (50000, 50000): 2}
 
 
-def load_wrapper(root: Path):
-    """The ``cuda_kernels`` module of the checkout at ``root``."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_cuda_kernels", root / "pbr3d_torch" / "ops" / "cuda_kernels.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True)
@@ -60,12 +49,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("min_dist2_ab: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = cs.query_card()
     print(card, flush=True)
     from pbr3d_torch.ops import cuda_kernels as current
 
-    wrappers = {"parent": load_wrapper(args.parent.resolve())}
+    wrappers = {"parent": cs.load_wrapper(args.parent.resolve())}
     if not args.skip_current:
         wrappers["current"] = current
     report: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,

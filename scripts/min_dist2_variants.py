@@ -90,14 +90,8 @@ def build_all(out_dir: Path) -> dict:
 def plan_for(lib, n, m):
     blocks = ctypes.c_int(0)
     assert lib.pbr3d_min_dist2_blocks_per_sm(ctypes.byref(blocks)) == 0
-    saved = ck.QUERIES_PER_BLOCK, ck.B_STEP
-    ck.QUERIES_PER_BLOCK = lib.pbr3d_min_dist2_queries_per_block()
-    ck.B_STEP = lib.pbr3d_min_dist2_b_step()
-    try:
-        plan = ck._launch_plan.__wrapped__(n, m, torch.cuda.get_device_properties(0).multi_processor_count,
-                                           blocks.value)
-    finally:
-        ck.QUERIES_PER_BLOCK, ck.B_STEP = saved
+    plan = ck._launch_plan(n, m, torch.cuda.get_device_properties(0).multi_processor_count, blocks.value,
+                           lib.pbr3d_min_dist2_queries_per_block(), lib.pbr3d_min_dist2_b_step())
     return blocks.value, plan
 
 
@@ -108,8 +102,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("min_dist2_variants: no CUDA device", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = cs.query_card()
     print(card, flush=True)
     libs = build_all(REPO / "build" / "min_dist2_variants")
     stream = torch.cuda.current_stream().cuda_stream
@@ -129,7 +122,7 @@ def main() -> int:
 
             launch()
             torch.cuda.synchronize()
-            _, _, top = cs._device_profile(lambda launch=launch: [launch() for _ in range(10)])
+            _, _, top, _ = cs._device_profile(lambda launch=launch: [launch() for _ in range(10)])
             alone = {("pack" if "pack" in k else "main"): ms / count for k, ms, count in top}
             rows[name] = {
                 **dict(zip(("threads", "queries", "unroll", "tile", "min_blocks"), VARIANTS[name])),

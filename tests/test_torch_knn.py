@@ -123,14 +123,14 @@ def test_plain_tiles_rows(rng, monkeypatch):
 
 @pytest.mark.parametrize("n,m", [(1, 1), (100, 3), (50000, 50000), (3000, 100003), (400000, 1400000), (5, 10**7)])
 def test_launch_plan(n, m):
-    m_pad, chunk_len, chunks = knn_launch_plan(n, m)
-    assert m_pad % cuda_kernels.KNN_B_STEP == 0 and 0 <= m_pad - m < cuda_kernels.KNN_B_STEP
-    assert chunk_len % cuda_kernels.KNN_B_STEP == 0 and chunk_len > 0
-    assert chunks == -(-m_pad // chunk_len) and 1 <= chunks <= cuda_kernels.KNN_MAX_CHUNKS
-    blocks = -(-n // cuda_kernels.KNN_QUERIES_PER_BLOCK)
-    if chunks > 1:  # split only to fill the card, and never into crumbs
-        assert blocks * (chunks - 1) < cuda_kernels.KNN_MIN_BLOCKS
-        assert chunk_len >= cuda_kernels.KNN_MIN_CHUNK
+    for cap, (sms, per_sm) in zip(cuda_kernels.KNN_CAPACITIES, [(132, 4), (132, 5), (132, 3), (16, 2), (132, 3), (132, 2), (1, 1)]):
+        plan = knn_launch_plan(n, m, cap, sms, per_sm)
+        assert plan.m_pad % cuda_kernels.KNN_B_STEP == 0 and 0 <= plan.m_pad - m < cuda_kernels.KNN_B_STEP
+        assert plan.chunk_len % cuda_kernels.KNN_B_STEP == 0 and plan.chunk_len > 0
+        assert plan.chunks == -(-plan.m_pad // plan.chunk_len) and 1 <= plan.chunks <= cuda_kernels.MAX_CHUNKS
+        assert plan.query_tiles == -(-n // cuda_kernels.knn_queries_per_block(cap))
+        if plan.chunks > 1:  # split only to fill the card, and never into crumbs
+            assert plan.chunk_len >= cuda_kernels.MIN_CHUNK
 
 
 def test_capacity_and_k_range():
