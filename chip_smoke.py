@@ -86,7 +86,24 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    package's in the fixture.  It reports the wall, peak allocated and
    reserved bytes, both kernels' launches and the profiler's busy share.
 
+9. the stage-1 API, after the study and before phase 8: the unfused
+   ``carve_monument`` on Bibi@512 (cold and warm; the steps once more under
+   ``StageTimer``; peak allocated bytes; the profiler's busy share), on the
+   ten study scenes, and under a test preset whose group angles differ from
+   the global angle (five monuments at 256 and Bibi@512; the fused route
+   refuses it): every grid's sha256 and label counts equal to the JAX
+   unfused route's in ``tests/fixtures/torch_port_presets.npz``, and equal
+   to the fused route's grid exactly where the JAX package's two routes
+   agree;
+   ``rotate_y_binary_u8`` and ``rotate_y`` on the Bibi@512 occupancy at
+   ``ROTATE_ANGLES``, the card's bytes equal to CPU tensors'; the hole
+   closing and small-region removal of Bibi's front plane, card against
+   CPU, and its symmetry axis against JAX's; a ``device_trace`` around one
+   warm carve with CUDA kernel events.  ``utils.viz`` is not run (no
+   matplotlib on the card).
+
 ``python3 chip_smoke.py study`` runs the build and phase 7 alone,
+``python3 chip_smoke.py stage1`` the build and phase 9,
 ``python3 chip_smoke.py kernels`` the build and phase 2, ``python3
 chip_smoke.py eval`` the build and phase 8 on the committed artifacts; each
 prints no result line.  The last two lines are the kernels' JSON record and the result line
@@ -97,6 +114,7 @@ there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import importlib.util
 import io
@@ -123,7 +141,10 @@ from pbr3d_torch.camera.estimate import (
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
 from pbr3d_torch.carving.fused import _sweep_working_set, carve_monument_fused, carve_monuments_batched
-from pbr3d_torch.carving.stage1 import global_carve
+from pbr3d_torch.carving.stage1 import (
+    carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
+    recolor_backward_components, reorient,
+)
 from pbr3d_torch.carving.voxel import all_points, meshify_colored_voxel_grid, surface_points_by_parts
 from pbr3d_torch.config import rgb_to_labels
 from pbr3d_torch.deform import search, verify
@@ -137,7 +158,9 @@ from pbr3d_torch.ops.cuda_kernels import (
     knn_kernel, knn_plain, load_extension, min_dist2_kernel, min_dist2_plain,
 )
 from pbr3d_torch.ops.point_table import build_point_table
+from pbr3d_torch.ops.rotate import rotate_y, rotate_y_binary_u8
 from pbr3d_torch.pipeline import ALIGN_PARTS, SceneMasks, run_all_body, run_stage2_views, run_stage3_body
+from pbr3d_torch.segmentation import close_holes, find_symmetry_axis, remove_small_regions_2d
 from pbr3d_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parent
@@ -270,6 +293,18 @@ GAUSS_RTOL = 2e-5
 NB5 = dict(seed=0, sparse_points=100_000, noise=0.002, mesh_stride=2, cad_samples=50_000, tau=0.03,
            grid_size=128, k=20, y_thresh=0.9)
 NB5_CLOUDS = ("Sparse", "Completed (ICP Aligned)", "Carved Grid", "Stage-3 Model", "Synthetic")
+
+PRESETS = REPO / "tests/fixtures/torch_port_presets.npz"
+#: Phase 9's test preset (not a user configuration): group sweeps whose
+#: angles differ from the global 90°, which the fused route refuses and the
+#: unfused ``carve_monument`` takes; the reference's part symmetry and
+#: extrusion depths.
+OTHER_ANGLE_GROUPS = (
+    (("full_building",), 90), (("chhatris",), 45), (("plinth",), 90),
+    (("front_minarets",), 30), (("small_minarets",), 30), (("dome",), 15),
+)
+#: Bit-exact rotation angles of phase 9 on the Bibi@512 grid.
+ROTATE_ANGLES = (5.0, 45.0, 90.0, 137.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -528,7 +563,8 @@ def phase_knn_kernel() -> dict:
     return out
 
 
-def phase_stage1(fx) -> np.ndarray:
+def phase_stage1(fx):
+    """Returns the fused route's grid and its (cold, warm) seconds."""
     colored = rgb_to_labels(np.load(ORACLE)["colored"])
     g = global_carve(fx["binary"], fx["exterior_labels"], 90, device="cuda").cpu().numpy()
     check(np.array_equal(g, colored),
@@ -555,7 +591,7 @@ def phase_stage1(fx) -> np.ndarray:
         save_voxel_grid(path, grid)
         check(np.array_equal(load_voxel_grid_labels(path), grid), "saved grid does not round-trip")
     log("stage1 artifact: saved and reloaded in the reference layout")
-    return grid
+    return grid, times
 
 
 def phase_metrics(fx, grid: np.ndarray) -> int:
@@ -918,6 +954,160 @@ def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
         f"min={gates.STAGE3_MEAN_PART_IOU_MIN}")
     check(whole >= gates.STAGE3_WHOLE_IOU_MIN, f"stage-3 whole IoU {whole}")
     check(mean_part >= gates.STAGE3_MEAN_PART_IOU_MIN, f"stage-3 mean part IoU {mean_part}")
+
+
+def _refusal(fn) -> str:
+    """The message of the ``NotImplementedError`` that ``fn()`` raises, or
+    "" when it returns."""
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return ""
+
+
+def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> None:
+    """Phase 9: the unfused stage-1 route and the tooling beside it on the
+    card.  ``fused`` is phase 3's (grid, (cold s, warm s)); without it (the
+    ``stage1`` mode) the fused route runs here first."""
+    fxp = np.load(PRESETS)
+    where = f"[{card}]"
+    t9 = time.perf_counter()
+    masks = MaskSet.from_labels(fx["binary"], fx["exterior_labels"], fx["semantic_labels"])
+    if fused is None:
+        fused_times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fused_grid = carve_monument_fused(masks, device=device)
+            fused_times.append(time.perf_counter() - t0)
+        fused = (fused_grid, fused_times)
+    fused_grid, fused_times = fused
+
+    def anchored(grid, key, fused_sha256, what):
+        """The grid is the JAX unfused route's; it is the fused route's
+        exactly when the JAX package's two routes agree (they differ where
+        other parts' voxels sit in a guided window, see
+        ``pbr3d_torch.carving.stage1.component_guided_carve``)."""
+        digest, counts = _sha256_counts(grid)
+        check(digest == str(fxp[f"{key}_sha256"]) and np.array_equal(counts, fxp[f"{key}_counts"]),
+              f"stage1 api: {what} {digest[:12]} is not the JAX unfused route's {str(fxp[f'{key}_sha256'])[:12]}")
+        jax_routes_agree = str(fxp[f"{key}_sha256"]) == fused_sha256
+        check((digest == fused_sha256) == jax_routes_agree,
+              f"stage1 api: {what}: equal to the fused route's grid {digest == fused_sha256}, the JAX "
+              f"package's two routes agree {jax_routes_agree}")
+        return digest, jax_routes_agree
+
+    # 1. Bibi@512: cold and warm, against the JAX grids and the fused route
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = carve_monument(masks, device=device)
+        times.append(time.perf_counter() - t0)
+        anchored(grid, "default_bibi512", _sha256_counts(fx["grid"])[0], "carve_monument Bibi@512")
+    check(np.array_equal(fx["grid"], fused_grid), "phase 3's fused grid is not the JAX grid")
+    diff = int((grid != fused_grid).sum())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"stage1 api {where}: carve_monument (unfused) Bibi@512 {grid.shape} = the JAX unfused route's; "
+        f"{diff} voxels differ from the JAX and the fused grid; cold_s={times[0]:.3f} warm_s={times[1]:.3f} "
+        f"(fused route cold_s={fused_times[0]:.3f} warm_s={fused_times[1]:.3f}) peak_mem_bytes={peak}")
+
+    # the steps under StageTimer (device-fenced at both edges of each)
+    preset = config.DEFAULT_CARVE_PRESET
+    timer = profiling.StageTimer()
+    with timer.stage("global"):
+        g = global_carve(masks.binary, masks.exterior_labels, preset.global_angle_interval, device=device)
+    with timer.stage("part"):
+        g = part_carve(g, masks.exterior_labels, preset.group_jobs, device=device)
+    with timer.stage("guided"):
+        for part, angle in preset.part_symmetry:
+            g = component_guided_carve(g, masks.exterior_labels, part, angle, device=device)
+    with timer.stage("extrude"):
+        g = extrude_interior_parts(g, masks.semantic_labels, preset.extrusion_depths, device=device)
+    with timer.stage("recolor"):
+        g = recolor_backward_components(reorient(g), device=device).cpu().numpy()
+    check(np.array_equal(g, grid), "the stage-1 steps one by one do not give carve_monument's grid")
+    for ln in timer.report().splitlines():
+        log(f"stage1 api StageTimer {ln}")
+    wall, busy, top, _ = _device_profile(lambda: carve_monument(masks, device=device))
+    log(f"stage1 api profiled: wall_s={wall:.3f} device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
+    for name, ms, n in top[:5]:
+        log(f"stage1 api   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+
+    # 2. the ten study grids, default preset
+    for tag in STUDY_RUNS:
+        for m in config.MONUMENTS:
+            ms = MaskSet.from_labels(*(fxs[f"{tag}_{m}_{k}"] for k in ("binary", "exterior", "semantic")))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid_m = carve_monument(ms, device=device)
+            secs = time.perf_counter() - t0
+            digest, agree = anchored(grid_m, f"default_{tag}_{m}", str(fxs[f"{tag}_{m}_sha256"]),
+                                     f"carve_monument {tag} {m}")
+            log(f"stage1 api: carve_monument {tag} {m}: sha256 {digest[:12]} = the JAX unfused route's, "
+                f"{'=' if agree else 'not'} the fused route's (as in JAX), {secs:.3f} s")
+
+    # 3. the test preset, group angles other than the global one
+    other = dataclasses.replace(config.DEFAULT_CARVE_PRESET, group_jobs=OTHER_ANGLE_GROUPS)
+    runs = [(f"other_256_{m}", MaskSet.from_labels(*(fxs[f"256_{m}_{k}"] for k in ("binary", "exterior", "semantic"))))
+            for m in config.MONUMENTS] + [("other_bibi512", masks)]
+    for key, ms in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        digest, counts = _sha256_counts(carve_monument(ms, other, device=device))
+        secs = time.perf_counter() - t0
+        check(digest == str(fxp[f"{key}_sha256"]) and np.array_equal(counts, fxp[f"{key}_counts"]),
+              f"stage1 api: the test preset's {key} grid {digest[:12]} is not the JAX unfused route's "
+              f"{str(fxp[f'{key}_sha256'])[:12]}")
+        log(f"stage1 api: test preset {key}: sha256 {digest[:12]} = JAX, {secs:.3f} s "
+            f"(the JAX package's CPU run: {float(fxp[f'seconds_{key}']):.1f} s)")
+    refused = _refusal(lambda: carve_monument_fused(masks, other, device=device))
+    check("pbr3d_torch.carving.stage1.carve_monument" in refused,
+          f"carve_monument_fused does not refuse the test preset with the new message: {refused!r}")
+    log(f"stage1 api: carve_monument_fused refuses the test preset: {refused}")
+
+    # 4. rotation: the card against CPU tensors
+    occ = torch.from_numpy((fx["grid"] > 0).astype(np.float32))
+    occ_card = occ.to(device)
+    for angle in ROTATE_ANGLES:
+        b_card = rotate_y_binary_u8(occ_card, angle, device=device).cpu()
+        b_cpu = rotate_y_binary_u8(occ, angle, device="cpu")
+        check(torch.equal(b_card, b_cpu), f"rotate_y_binary_u8 {angle}°: card and CPU bytes differ")
+        f_card = rotate_y(occ_card, angle, device=device).cpu()
+        f_cpu = rotate_y(occ, angle, device="cpu")
+        unequal = int((f_card != f_cpu).sum())
+        check(unequal == 0, f"rotate_y {angle}°: {unequal} elements differ between the card and the CPU")
+        log(f"stage1 api: rotate_y_binary_u8 {angle}° on {tuple(occ.shape)}: card = CPU bytes "
+            f"({int(b_card.sum())} set); rotate_y: 0 of {f_card.numel()} elements differ")
+    del occ_card
+
+    # 5. segmentation on Bibi's front plane
+    binary = fx["binary"]
+    closed = close_holes(binary, 5, device=device)
+    check(np.array_equal(closed, close_holes(binary, 5, device="cpu")), "close_holes: card vs CPU")
+    kept = remove_small_regions_2d(torch.from_numpy(binary).to(device), 50)
+    check(np.array_equal(kept, remove_small_regions_2d(binary, 50)), "remove_small_regions_2d: card vs CPU")
+    axis = find_symmetry_axis(config.labels_to_rgb(fx["exterior_labels"]))
+    check(axis == int(fxp["symmetry_axis_bibi512"]),
+          f"find_symmetry_axis {axis} vs JAX {int(fxp['symmetry_axis_bibi512'])}")
+    log(f"stage1 api: segmentation on the {binary.shape} plane: close_holes(5) card = CPU "
+        f"({int(closed.sum())} px), remove_small_regions_2d(50) card = CPU ({int(kept.sum())} px), "
+        f"symmetry axis x={axis} = JAX")
+
+    # 6. a trace around one warm carve
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.device_trace(tmp) as log_dir:
+            carve_monument(masks, device=device)
+        trace, = Path(log_dir).glob("trace_*.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "device_trace: no CUDA kernel events in the trace")
+    log(f"stage1 api: device_trace around a warm carve_monument: {len(events)} events, {kernels} CUDA kernel events")
+    log("stage1 api: utils.viz is not run on the card (matplotlib is not installed there); "
+        "tests/test_torch_viz.py holds it against the JAX package on the CPU")
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
 
 def _sha256_counts(grid: np.ndarray):
@@ -1542,6 +1732,11 @@ def main() -> int:
         log(f"study alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
         return 0
 
+    if sys.argv[1:] == ["stage1"]:
+        phase_stage1_api(np.load(FIXTURE), fxs, card)
+        log(f"stage-1 API alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
+        return 0
+
     ev = json.loads(EVAL.read_text())
     if sys.argv[1:] == ["eval"]:
         taj = phase_eval_nb4(fxs, ev, card, {})
@@ -1557,7 +1752,7 @@ def main() -> int:
 
     fx = np.load(FIXTURE)
     min_dist2_kernel.launches = 0  # count the main path only
-    grid = phase_stage1(fx)
+    grid, fused_times = phase_stage1(fx)
     launches = phase_metrics(fx, grid)
     check(launches > 0, "the metrics never launched the min-dist kernel")
     fx2 = np.load(FIXTURE2)
@@ -1566,6 +1761,7 @@ def main() -> int:
     log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
     produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"]),
                 "256": phase_study(fxs, "256", card)}
+    phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
     t8 = time.perf_counter()
     taj = phase_eval_nb4(fxs, ev, card, produced)
     del produced

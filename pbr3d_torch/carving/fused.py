@@ -238,44 +238,67 @@ def guided_carve_all(
     return guided_carve_batched({0: grid}, {0: jobs})[0]
 
 
+def guided_carve_fused(
+    grid: torch.Tensor,
+    exterior_labels: np.ndarray,
+    part_name: str,
+    angle: int,
+) -> torch.Tensor:
+    """Single-part convenience wrapper over :func:`guided_carve_all`."""
+    return guided_carve_all(grid, exterior_labels, [(part_name, angle)])
+
+
+def _extrude(
+    grid: torch.Tensor,  # (W, H, D) uint8 labels; updated in place
+    mask_hw: torch.Tensor,  # (H, W) bool: the columns to extrude
+    axis: int,
+    positive: bool,
+    depth: int,
+    fill: int,
+) -> None:
+    """Set ``depth`` voxels to ``fill`` inward from the first occupied voxel
+    of each masked column along ``axis`` (2 or 0), from the front (+) or the
+    back (-) (reference extrude_from_surface, voxel_carving_utils.py:213-248).
+
+    Empty columns start at index 0 (+) or size-1 (-), as in the reference:
+    ``argmax`` over a uint8 axis returns the first maximal index in torch as
+    in JAX.  The JAX version ORs ``depth`` one-voxel slabs; here the band is
+    ``start <= c < start + depth`` (or its mirror), the same voxels since
+    every coordinate lies inside the grid.  Along axis 0 the (H, W) mask is
+    read as (H, D), the reference's quirk (stage-1 grids have W == D).
+    """
+    occ = (grid > 0).to(torch.uint8)
+    size = grid.shape[axis]
+    if positive:
+        start = occ.argmax(dim=axis)
+    else:
+        start = (size - 1) - occ.flip(axis).argmax(dim=axis)
+    coord = torch.arange(size, device=grid.device)
+    if axis == 2:
+        coord, start, valid = coord.view(1, 1, size), start[:, :, None], mask_hw.T[:, :, None]
+    elif axis == 0:
+        coord, start, valid = coord.view(size, 1, 1), start[None], mask_hw[None]
+    else:
+        raise ValueError("axis must be 0 or 2")
+    if positive:
+        band = (coord >= start) & (coord < start + depth)
+    else:
+        band = (coord <= start) & (coord > start - depth)
+    grid.masked_fill_(band & valid, fill)
+
+
 def _extrude_all(
     grid: torch.Tensor,  # (W, H, D) uint8 labels; updated in place
     sem_wh: torch.Tensor,  # (W, H) full-semantic labels (transposed)
     jobs: Tuple[Tuple[int, int], ...],  # (part_id, depth)
 ) -> torch.Tensor:
     """All interior extrusions (reference extrude_4dirs x parts,
-    voxel_carving_utils.py:213-248,356-373): paint ``depth`` voxels inward
-    from the first occupied voxel of each masked column along +Z, -Z, +X, -X.
-
-    Empty columns start at index 0 (+) or size-1 (-), as in the reference:
-    ``argmax`` over a uint8 axis returns the first maximal index in torch as
-    in JAX.  The JAX version ORs ``depth`` one-voxel slabs; here each
-    direction is one band ``start <= c < start + depth`` (or its mirror),
-    the same voxels since every coordinate lies inside the grid.
-    """
-    W, H, D = grid.shape
-    iz = torch.arange(D, device=grid.device).view(1, 1, D)
-    ix = torch.arange(W, device=grid.device).view(W, 1, 1)
+    voxel_carving_utils.py:356-373): paint ``depth`` voxels inward from the
+    first occupied voxel of each masked column along +Z, -Z, +X, -X."""
     for pid, depth in jobs:
-        mask_wh = sem_wh == pid
+        mask_hw = (sem_wh == pid).T
         for axis, positive in ((2, True), (2, False), (0, True), (0, False)):
-            occ = (grid > 0).to(torch.uint8)
-            size = D if axis == 2 else W
-            if positive:
-                start = occ.argmax(dim=axis)
-            else:
-                last = (size - 1) - occ.flip(axis).argmax(dim=axis)
-                start = torch.where(occ.any(dim=axis).bool(), last, size - 1)
-            if axis == 2:
-                coord, start, valid = iz, start[:, :, None], mask_wh[:, :, None]
-            else:
-                # the (H, W) mask read as (H, D) — reference quirk (W == D)
-                coord, start, valid = ix, start[None], mask_wh.T[None]
-            if positive:
-                band = (coord >= start) & (coord < start + depth)
-            else:
-                band = (coord <= start) & (coord > start - depth)
-            grid.masked_fill_(band & valid, pid)
+            _extrude(grid, mask_hw, axis, positive, depth, pid)
     return grid
 
 
@@ -283,16 +306,20 @@ def recolor_back_host(
     g: np.ndarray,  # (d, h, w) uint8, ALREADY reoriented, host; edited in place
     k: int = 2,
     sort_axis: int = 0,
+    part_name: str = "front_minarets",
+    new_part_name: str = "back_minarets",
 ) -> np.ndarray:
     """Back-minaret recolor of an already-reoriented grid (reference
     voxel_carving_utils.py:252-266): all but the ``k`` front-most
-    front_minaret components become back_minarets.  Labeling runs on the
-    part's occupied bbox only (identical components)."""
+    ``part_name`` components (smallest mean coordinate along ``sort_axis``,
+    ties to the lower component id) become ``new_part_name``.  Labeling runs
+    on the part's occupied bbox only (identical components, numbered in the
+    same raster order)."""
     with prof("rbh.copy", sync=False):
         if not g.flags.writeable:
             g = g.copy()
-    pid = PART_IDS["front_minarets"]
-    new_pid = PART_IDS["back_minarets"]
+    pid = PART_IDS[part_name]
+    new_pid = PART_IDS[new_part_name]
     with prof("rbh.eqbbox", sync=False):
         occ = g == pid
         bb = _bbox3(occ)
@@ -327,10 +354,23 @@ def _bbox3(occ: np.ndarray):
     return out
 
 
-def _reorient(g: torch.Tensor) -> torch.Tensor:
+def reorient(g: torch.Tensor) -> torch.Tensor:
     """The transpose(2,1,0)+flip(1) frame change the reference applies before
     recoloring and never undoes (voxel_carving_utils.py:383-386)."""
     return torch.flip(g.permute(2, 1, 0), (1,))
+
+
+def reorient_recolor_host(
+    grid_true: np.ndarray,  # (w, h, d) uint8, TRUE extent, host
+    k: int = 2,
+    sort_axis: int = 0,
+) -> np.ndarray:
+    """The persistent transpose(2,1,0)+flip(1) reorientation followed by the
+    back-minaret recolor (reference voxel_carving_utils.py:252-266,383-393),
+    entirely on host (the production route reorients on the device before
+    the download and calls :func:`recolor_back_host` directly)."""
+    g = np.flip(np.transpose(grid_true, (2, 1, 0)), axis=1).copy()
+    return recolor_back_host(g, k, sort_axis)
 
 
 def _preset_sweeps(preset: config.CarvePreset):
@@ -338,9 +378,8 @@ def _preset_sweeps(preset: config.CarvePreset):
     angles = {angle for _, angle in preset.group_jobs}
     if angles != {preset.global_angle_interval}:
         raise NotImplementedError(
-            "fused stage 1 assumes group angles == global angle; the port has no "
-            "route yet for presets whose group angles differ (the JAX package's "
-            "pbr3d.carving.stage1.carve_monument takes them)"
+            "fused stage 1 assumes group angles == global angle; for presets whose "
+            "group angles differ use pbr3d_torch.carving.stage1.carve_monument"
         )
     group_ids = tuple(tuple(int(i) for i in config.part_ids(names)) for names, _ in preset.group_jobs)
     return group_ids, tuple((PART_IDS[p], int(depth)) for p, depth in preset.extrusion_depths)
@@ -361,7 +400,7 @@ def _finish_scene(grid: torch.Tensor, mask_set, preset: config.CarvePreset) -> n
     if not preset.recolor_back_minarets:
         return grid.cpu().numpy()
     with prof("stage1.download_reorient"):
-        host = _reorient(grid).cpu().numpy()
+        host = reorient(grid).cpu().numpy()
     with prof("stage1.recolor", sync=False):
         return recolor_back_host(host)
 

@@ -167,3 +167,14 @@ def prepare_masks(
         semantic_labels=semantic_labels,
         exterior_labels=exterior_labels,
     )
+
+
+def mask_parts_from_labels(labels: np.ndarray, part_names) -> np.ndarray:
+    """Keep only the selected parts of a label plane (others -> 0).
+
+    Label-domain analogue of ``mask_parts_from_image``
+    (reference: utils/mask_utils.py:89-97).
+    """
+    ids = config.part_ids(part_names)
+    keep = np.isin(labels, ids)
+    return np.where(keep, labels, 0).astype(labels.dtype)

@@ -22,6 +22,11 @@ import torch
 from pbr3d_torch.ops.rotate import lut_plan, lut_plan_embedded
 
 
+def carve_with_mask(occ: torch.Tensor, mask_wh: torch.Tensor) -> torch.Tensor:
+    """Zero voxels whose (x, y) column lies outside the (W, H) mask."""
+    return occ * (mask_wh > 0).to(occ.dtype)[:, :, None]
+
+
 def sweep_angles(angle_interval: int) -> tuple:
     """The carve sweep schedule: range(0, 91, angle_interval)."""
     return tuple(range(0, 91, int(angle_interval)))

@@ -1,6 +1,9 @@
-"""Host float64 planners of the Y-axis rotate-and-carve sweep.
+"""Host float64 planners of the Y-axis rotate-and-carve sweep, and the two
+rotations that execute them on a device (:func:`rotate_y`,
+:func:`rotate_y_binary_u8`).
 
-Copied verbatim from ``pbr3d.ops.rotate`` (whose module imports jax).  These
+The planners are copied verbatim from ``pbr3d.ops.rotate`` (whose module
+imports jax).  These
 plans are the state the port carries across from the JAX package: the corner
 gather indices and the per-pixel 16-bit decision LUTs are computed on the
 host in float64, with scipy's evaluation order, so that the device sweep
@@ -23,6 +26,7 @@ import functools
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def rotation_matrix_inv(angle_deg: float) -> np.ndarray:
@@ -99,6 +103,31 @@ def _gather_plan(
             idxs.append((xi * D + zi).astype(np.int32))
             ws.append(np.where(inside, wx * wz, 0.0).astype(np.float32))
     return np.stack(idxs), np.stack(ws)
+
+
+def rotate_y(grid, angle_deg: float, *, device) -> torch.Tensor:
+    """Rotate a (W, H, D) grid about +Y by ``angle_deg`` (trilinear), in
+    float32 on ``device``.
+
+    Returns the raw interpolant (no rounding); zeros outside the grid.  The
+    corner terms add up in the JAX package's order, ``out + w[k] * g_k``,
+    product and sum each rounded: XLA's CPU backend does not fuse this sum
+    into FMAs (bit-equal in ``tests/test_torch_stage1_api.py``), and eager
+    torch runs the multiply and the add as two kernels on any device.
+    """
+    grid = torch.as_tensor(grid, device=device).to(torch.float32)
+    W, H, D = grid.shape
+    if float(angle_deg) % 360.0 == 0.0:
+        return grid
+    idx, w = _gather_plan(W, D, float(angle_deg))
+    # (W,H,D) -> (H, W*D): y becomes the batch axis, gathers hit axis 1.
+    g2 = grid.permute(1, 0, 2).reshape(H, W * D)
+    idx = torch.from_numpy(idx).to(device=device, dtype=torch.int64)
+    w = torch.from_numpy(w).to(device)
+    out = torch.zeros_like(g2)
+    for k in range(idx.shape[0]):
+        out = out + w[k] * torch.index_select(g2, 1, idx[k])
+    return out.view(H, W, D).permute(1, 0, 2)
 
 
 @functools.lru_cache(maxsize=256)
@@ -187,3 +216,33 @@ def lut_plan_embedded(
     out_idx[:, pos] = idx_p
     out_dec[pos] = dec
     return out_idx, out_dec
+
+
+def rotate_y_binary_u8(grid, angle_deg: float, *, device) -> torch.Tensor:
+    """Rotate a {0,1} grid, bit-exactly reproducing scipy's uint8 path.
+
+    Equivalent to ``affine_transform(uint8_grid, ...)`` for binary grids:
+    trilinear-interpolate in float64, round half away from zero.  Implemented
+    with the per-pixel decision LUT of :func:`_binary_plan` — integer gathers
+    and bit operations only; exact-permutation angles (90°, 180°) go through
+    :func:`rotate_y` and a ``>= 0.5`` threshold.  The result has the input's
+    dtype (float32 {0., 1.} in the JAX package's carve chain).
+    """
+    grid = torch.as_tensor(grid, device=device)
+    if float(angle_deg) % 360.0 == 0.0:
+        return grid
+    W, H, D = grid.shape
+    plan = _binary_plan(W, D, float(angle_deg))
+    if plan is None:  # exact permutation — single masked gather
+        return (rotate_y(grid, angle_deg, device=device) >= 0.5).to(grid.dtype)
+    idx, dec = plan
+    idx = torch.from_numpy(idx).to(device=device, dtype=torch.int64)
+    dec = torch.from_numpy(dec).to(device)
+    g2 = (grid.permute(1, 0, 2).reshape(H, W * D) > 0).to(torch.uint8)
+    code = torch.zeros_like(g2)
+    for k in range(4):
+        code |= torch.index_select(g2, 1, idx[k]) << k
+    bit = code.to(torch.int32)
+    torch.bitwise_right_shift(dec[None, :], bit, out=bit)
+    bit &= 1
+    return bit.to(grid.dtype).view(H, W, D).permute(1, 0, 2)

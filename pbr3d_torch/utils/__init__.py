@@ -1,1 +1,1 @@
-"""Shared utilities: profiling."""
+"""Shared utilities: profiling, streams, visualization."""

@@ -162,6 +162,10 @@ def test_guided_windows_in_chunks_and_across_scenes(scenes, monkeypatch):
 
 def test_refusal_of_a_preset_with_other_group_angles_names_no_missing_route():
     preset = config.CarvePreset(group_jobs=((("full_building",), 45),))
-    with pytest.raises(NotImplementedError, match="no route yet") as err:
+    with pytest.raises(NotImplementedError, match="group angles differ") as err:
         torch_fused._preset_sweeps(preset)
-    assert "pbr3d_torch.carving.stage1" not in str(err.value)
+    # the route it names exists
+    assert "pbr3d_torch.carving.stage1.carve_monument" in str(err.value)
+    from pbr3d_torch.carving import stage1
+
+    assert callable(stage1.carve_monument)

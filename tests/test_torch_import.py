@@ -1,7 +1,8 @@
-"""pbr3d_torch and chip_smoke import with jax, cv2, pandas, tabulate and the
-JAX package unavailable (the card's machine has none of the first four, and
-the port keeps its own copies of what it needs from ``pbr3d``), and build no
-kernel on import."""
+"""pbr3d_torch, the example twins and chip_smoke import with jax, cv2,
+pandas, tabulate, matplotlib, plotly, segment_anything and the JAX package
+unavailable (the card's machine has none of the first seven, and the port
+keeps its own copies of what it needs from ``pbr3d``), and build no kernel on
+import."""
 
 import subprocess
 import sys
@@ -45,19 +46,32 @@ MODULES = [
     "pbr3d_torch.deform.verify",
     "pbr3d_torch.entry",
     "pbr3d_torch.pipeline",
+    "pbr3d_torch.carving",
+    "pbr3d_torch.io",
+    "pbr3d_torch.ops",
+    "pbr3d_torch.eval",
+    "pbr3d_torch.segmentation",
+    "pbr3d_torch.segmentation.state",
+    "pbr3d_torch.segmentation.crop",
+    "pbr3d_torch.segmentation.cleanup",
+    "pbr3d_torch.segmentation.sam",
+    "pbr3d_torch.utils",
+    "pbr3d_torch.utils.viz",
     "chip_smoke",
 ]
+BLOCKED = ("jax", "cv2", "pbr3d", "pandas", "tabulate", "matplotlib", "plotly", "segment_anything")
+TWINS = sorted(str(p) for p in (REPO / "examples" / "torch").glob("[1-6]_*.py"))
 
 _PROBE = f"""
-import importlib, sys
-sys.modules["jax"] = None
-sys.modules["cv2"] = None
-sys.modules["pbr3d"] = None
-sys.modules["pandas"] = None
-sys.modules["tabulate"] = None
+import importlib, importlib.util, sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
 for name in {MODULES!r}:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cv2", "pbr3d", "pandas", "tabulate")
+for i, path in enumerate({TWINS!r}):
+    spec = importlib.util.spec_from_file_location(f"twin_{{i}}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED + ("jaxlib",)!r}
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 from pbr3d_torch.ops.cuda_kernels import load_extension
@@ -68,7 +82,8 @@ print("ok")
 
 def test_port_imports_without_jax_and_cv2():
     """Also without ``pbr3d``: no ``pbr3d.*`` module is loaded after every
-    port module and ``chip_smoke`` are imported."""
+    port module, the six example twins and ``chip_smoke`` are imported."""
+    assert len(TWINS) == 6
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
         timeout=120,
