@@ -18,7 +18,17 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    ``knn_kernel`` against ``knn_plain`` at every case of ``KNN_CASES``
    (distances to ``KERNEL_RTOL``, indices equal but for counted near ties,
    k = 1 equal to ``min_dist2``'s bits) and timed the same way beside the
-   ``torch.cdist`` + ``topk`` yardstick;
+   ``torch.cdist`` + ``topk`` yardstick; then ``components_kernel`` against
+   ``components_plain`` and host scipy, and ``component_stats_kernel``
+   against ``component_stats_plain`` and, bit for bit, the host statistics,
+   at every case of ``COMPONENT_CASES`` under face and full connectivity,
+   on the Bibi@512 part masks and occupancy of the fixture's grid, and on
+   the bbox crops the fused route labels, each case launched three times
+   with equal results; then both timed on the path's part mask
+   (``COMPONENT_TIMED_PART``) and the occupancy beside their byte bounds,
+   the plain versions and the host labeller and statistics (no PyTorch
+   call labels components), and the unfused route's bbox labelling against
+   the whole grid's;
 3. stage 1 at 512 (Bibi): ``global_carve`` bit-exact against the reference
    oracle, ``carve_monument_fused`` bit-exact against the JAX package's grid
    in ``tests/fixtures/torch_port_Bibi_512.npz``; cold and warm times, peak
@@ -94,7 +104,9 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    refuses it): every grid's sha256 and label counts equal to the JAX
    unfused route's in ``tests/fixtures/torch_port_presets.npz``, and equal
    to the fused route's grid exactly where the JAX package's two routes
-   agree;
+   agree; the unfused carves label on the card: both components kernels'
+   launches over them must be positive, and a card tensor reaching a plain
+   or host labeller fails the phase;
    ``rotate_y_binary_u8`` and ``rotate_y`` on the Bibi@512 occupancy at
    ``ROTATE_ANGLES``, the card's bytes equal to CPU tensors'; the hole
    closing and small-region removal of Bibi's front plane, card against
@@ -128,6 +140,7 @@ from pathlib import Path
 from unittest import mock
 
 import numpy as np
+import scipy.ndimage
 import torch
 
 from pbr3d_torch import config, pipeline
@@ -142,7 +155,7 @@ from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
 from pbr3d_torch.carving.fused import _sweep_working_set, carve_monument_fused, carve_monuments_batched
 from pbr3d_torch.carving.stage1 import (
-    carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
+    _label_part, carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
     recolor_backward_components, reorient,
 )
 from pbr3d_torch.carving.voxel import all_points, meshify_colored_voxel_grid, surface_points_by_parts
@@ -153,9 +166,11 @@ from pbr3d_torch.eval import gates, inter, intra, preprocess
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels, save_voxel_grid
 from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.io.pointcloud import load_obj, load_ply, save_ply
-from pbr3d_torch.ops import morphology, neighbors
+from pbr3d_torch.carving import fused as fused_route
+from pbr3d_torch.ops import components, morphology, neighbors
 from pbr3d_torch.ops.cuda_kernels import (
-    knn_kernel, knn_plain, load_extension, min_dist2_kernel, min_dist2_plain,
+    component_stats_kernel, component_stats_plain, components_kernel, components_plain, knn_kernel, knn_plain,
+    load_extension, min_dist2_kernel, min_dist2_plain,
 )
 from pbr3d_torch.ops.point_table import build_point_table
 from pbr3d_torch.ops.rotate import rotate_y, rotate_y_binary_u8
@@ -236,6 +251,32 @@ KNN_NEAR_TIE_SHARE = 1e-4
 #: All are timed whole; above ``KNN_PLAIN_PAIRS`` pairs the yardstick, like
 #: the plain version, takes one repetition a turn.
 KNN_TIMED = ((50000, 50000, 2), (120000, 120000, 20), (100000, 100000, 1), (185750, 1450802, 1))
+
+#: (kind, shape) of the connected-components checks, each under face and
+#: full connectivity: seeded random masks at three densities, in 3-D and as
+#: a plane (1, H, W); odd shapes; one voxel set and unset; a one-voxel-thick
+#: slab with holes; an empty and a full grid of Bibi@512's shape; a 3-D
+#: spiral (``helix``: open rings at every other x, one voxel thick, ~38k
+#: voxels in one path); a checkerboard (8.4 M components under face, one
+#: under full).  Phase 2 adds the Bibi@512 part masks and the fused route's
+#: bbox crops.
+COMPONENT_CASES = (
+    ("random:0.3", (160, 160, 160)), ("random:0.6", (160, 160, 160)), ("random:0.75", (160, 160, 160)),
+    ("random:0.3", (1, 2048, 2048)), ("random:0.6", (1, 2048, 2048)), ("random:0.75", (1, 2048, 2048)),
+    ("random:0.6", (1, 7, 300001)), ("random:0.6", (333, 1, 1021)), ("random:0.6", (1023, 1025, 3)),
+    ("on", (1, 1, 1)), ("off", (1, 1, 1)), ("slab", (257, 300, 311)), ("off", (512, 318, 512)),
+    ("on", (512, 318, 512)), ("helix", (79, 202, 202)), ("checker", (255, 256, 257)),
+)
+#: Each case's kernel runs this often; every run must give the same bytes.
+COMPONENT_RUNS = 3
+#: Above this many components the host statistics (a Python loop over the
+#: components) are not run; the kernel is held to the plain version alone,
+#: which the CPU tests hold bit-equal to the host's.
+COMPONENT_HOST_STATS_MAX = 20000
+#: The parts the path labels (the guided carve's and the recolour's), whose
+#: Bibi@512 masks phase 2 checks, and the one it times beside the occupancy.
+COMPONENT_PARTS = ("dome", "chhatris", "front_minarets", "back_minarets", "small_minarets")
+COMPONENT_TIMED_PART = "front_minarets"
 
 FIXTURE2 = REPO / "tests/fixtures/torch_port_Bibi_512_stage2.npz"
 VIEWS = ("front", "drone")
@@ -560,6 +601,186 @@ def phase_knn_kernel() -> dict:
         tag = "" if (n, m, k) == KNN_TIMED[0] else f"_{n // 1000}k_k{k}"
         out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": bound,
                     f"library_ms{tag}": library_ms, "bound_by": bound_by})
+    return out
+
+
+def component_case_mask(kind: str, shape) -> np.ndarray:
+    """The seeded host mask of a ``COMPONENT_CASES`` case."""
+    name, _, arg = kind.partition(":")
+    if name == "random":
+        return np.random.default_rng([int(float(arg) * 100), *shape]).random(shape, np.float32) < float(arg)
+    if name in ("on", "off"):
+        return np.full(shape, name == "on")
+    if name == "checker":
+        return np.indices(shape, np.int16).sum(axis=0) % 2 == 0
+    g = np.zeros(shape, bool)
+    if name == "slab":
+        g[shape[0] // 2] = np.random.default_rng(7).random(shape[1:]) < 0.7
+        g[0, 0, :3] = g[-1, -1, -1] = True
+        return g
+    # helix: open rectangular rings in (y, z) at even x, joined at odd x
+    sy, sz = shape[1] - 2, shape[2] - 2
+    ring = ([(0, z) for z in range(sz)] + [(y, sz - 1) for y in range(1, sy)]
+            + [(sy - 1, z) for z in range(sz - 2, -1, -1)] + [(y, 0) for y in range(sy - 2, 0, -1)])
+    start = 0
+    for level in range(0, shape[0], 2):
+        ys, zs = np.array([ring[(start + j) % len(ring)] for j in range(len(ring) - 2)]).T
+        g[level, ys + 1, zs + 1] = True
+        start = (start + len(ring) - 3) % len(ring)
+        if level + 1 < shape[0]:
+            y, z = ring[start]
+            g[level + 1, y + 1, z + 1] = True
+    return g
+
+
+def _scipy_label(mask: np.ndarray, connectivity: str):
+    structure = np.ones((3,) * mask.ndim, bool) if connectivity == "full" else None
+    labels, n = scipy.ndimage.label(mask, structure=structure)
+    return labels.astype(np.int32), int(n)
+
+
+def components_agree(mask: np.ndarray, connectivity: str, what: str) -> int:
+    """``components_kernel`` on the card, ``COMPONENT_RUNS`` times, against
+    itself, ``components_plain`` on the card and host scipy: labels and n
+    equal; then ``component_stats_kernel`` against the plain statistics and,
+    up to ``COMPONENT_HOST_STATS_MAX`` components, the host's, bit for bit.
+    Returns n."""
+    vol = torch.from_numpy(np.ascontiguousarray(mask).view(np.uint8)).cuda()
+    full = connectivity == "full"
+    runs = [components_kernel(vol, full) for _ in range(COMPONENT_RUNS)]
+    torch.cuda.synchronize()
+    labels, n = runs[0]
+    check(labels.dtype == torch.int32 and labels.shape == vol.shape, f"components {what}: {labels.dtype} {labels.shape}")
+    check(all(m == n and torch.equal(lab, labels) for lab, m in runs[1:]),
+          f"components {what}: the {COMPONENT_RUNS} runs differ")
+    plain, n_plain = components_plain(vol, full)
+    check(n_plain == n and torch.equal(plain, labels), f"components {what}: kernel n={n} vs plain n={n_plain}")
+    del plain
+    ref, n_ref = _scipy_label(mask, connectivity)
+    got = labels.cpu().numpy()
+    check(n_ref == n and np.array_equal(got, ref),
+          f"components {what}: kernel n={n} vs scipy n={n_ref}, {int((got != ref).sum())} voxels differ")
+    stats = component_stats_kernel(labels, n)
+    same = all(torch.equal(a, b) for a, b in zip(stats, component_stats_plain(labels, n)))
+    check(same, f"component stats {what}: kernel vs plain")
+    if n <= COMPONENT_HOST_STATS_MAX:
+        host = components._host_component_stats(ref, n)
+        ours = components.component_stats(labels, n)
+        for key, want in host.items():
+            check(ours[key].dtype == want.dtype and np.array_equal(ours[key].view(np.uint8), want.view(np.uint8)),
+                  f"component stats {what}: {key} is not the host's bits")
+    log(f"components {what} {connectivity}: n={n} equal to plain and scipy over {COMPONENT_RUNS} runs; "
+        f"stats equal to plain{' and, bit for bit, the host' if n <= COMPONENT_HOST_STATS_MAX else ''}")
+    return n
+
+
+def components_bound(numel: int):
+    """(least ms of the labelling, of the statistics) on an H100: the mask
+    read (1 B) and the labels written (4 B) a voxel; the labels read (4 B)."""
+    return numel * 5 / HBM_BYTES_PER_S * 1e3, numel * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def _host_s(fn, reps: int) -> list:
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_components_kernel(fx) -> dict:
+    """The components kernels against their plain versions and host scipy at
+    every ``COMPONENT_CASES`` case, on the Bibi@512 part masks of the JAX
+    grid (phase 3's grid, which phase 3 holds equal to it) and on the bbox
+    crops the fused route labels; then kernel, plain version and host scipy
+    timed in turns on the path's part mask and on the whole occupancy, and
+    the whole grid against the part's bbox as what the unfused route
+    labels."""
+    t0 = time.perf_counter()
+    for kind, shape in COMPONENT_CASES:
+        mask = component_case_mask(kind, shape)
+        for connectivity in ("face", "full"):
+            components_agree(mask, connectivity, f"{kind} {shape}")
+    grid = np.ascontiguousarray(fx["grid"])
+    parts = {name: grid == config.PART_IDS[name] for name in COMPONENT_PARTS}
+    parts["occupancy"] = grid > 0
+    for name, mask in parts.items():
+        for connectivity in ("face", "full") if name == "occupancy" else ("face",):
+            components_agree(mask, connectivity, f"Bibi@512 {name} {mask.shape}")
+    crops = []
+    real = fused_route._host_scipy_label
+
+    def recording(mask_np, connectivity):
+        crops.append((np.array(mask_np), connectivity))
+        return real(mask_np, connectivity)
+
+    masks = MaskSet.from_labels(fx["binary"], fx["exterior_labels"], fx["semantic_labels"])
+    with mock.patch.object(fused_route, "_host_scipy_label", recording):
+        carve_monument_fused(masks, device="cuda")
+    check(len(crops) > 0, "the fused route labelled nothing")
+    for k, (mask, connectivity) in enumerate(crops):
+        components_agree(mask, connectivity, f"fused route crop {k} {mask.shape}")
+    log(f"components checks: {len(COMPONENT_CASES) * 2} cases, {len(parts) + 1} Bibi@512 masks, "
+        f"{len(crops)} fused-route crops, {time.perf_counter() - t0:.1f} s")
+
+    # labels are compared for equality above: no error
+    out = {key: {"max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None}
+           for key in ("components", "component_stats")}
+    for name in (COMPONENT_TIMED_PART, "occupancy"):
+        mask = parts[name]
+        vol = torch.from_numpy(mask.view(np.uint8)).cuda()
+        labels, n = components_kernel(vol, False)
+        samples: list = []
+        with smi_samples(samples):
+            t = time_in_turns(
+                {"kernel": lambda: components_kernel(vol, False), "plain": lambda: components_plain(vol, False),
+                 "stats": lambda: component_stats_kernel(labels, n),
+                 "stats_plain": lambda: component_stats_plain(labels, n)},
+                {"kernel": 20, "plain": 1, "stats": 20, "stats_plain": 1},
+                ["kernel", "plain", "stats", "stats_plain", "stats_plain", "stats", "plain", "kernel"])
+        host = _host_s(lambda: components._host_scipy_label(mask, "face"), 2)
+        scipy_s = _host_s(lambda: scipy.ndimage.label(mask), 2)
+        ref = labels.cpu().numpy()
+        host_stats = _host_s(lambda: components._host_component_stats(ref, n), 2)
+        bound, stats_bound = components_bound(mask.size)
+        ms, plain_ms, sms, splain = (float(np.mean(t[k])) for k in ("kernel", "plain", "stats", "stats_plain"))
+        log(f"components {name} {mask.shape} n={n}: kernel_ms={t['kernel']} plain_ms={t['plain']} "
+            f"host _host_scipy_label_ms={[s * 1e3 for s in host]} scipy.ndimage.label_ms={[s * 1e3 for s in scipy_s]} "
+            f"bound_ms={bound:.4f} (bytes) share_of_bound={bound / ms:.3f}; {smi_summary(samples)}")
+        log(f"component_stats {name}: kernel_ms={t['stats']} plain_ms={t['stats_plain']} "
+            f"host _host_component_stats_ms={[s * 1e3 for s in host_stats]} bound_ms={stats_bound:.4f} (bytes) "
+            f"share_of_bound={stats_bound / sms:.3f}")
+        tag = "" if name == COMPONENT_TIMED_PART else f"_{name}"
+        out["components"].update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": bound,
+                                  f"host_scipy_label_ms{tag}": float(np.mean(host)) * 1e3})
+        out["component_stats"].update({f"ms{tag}": sms, f"plain_ms{tag}": splain, f"bound_ms{tag}": stats_bound,
+                                       f"host_component_stats_ms{tag}": float(np.mean(host_stats)) * 1e3})
+        del labels
+        torch.cuda.empty_cache()
+
+    # what the unfused route labels: the part's bbox (found on the card,
+    # which synchronises) and its crop, or the whole grid
+    grid_t = torch.from_numpy(grid).cuda()
+    pid = config.PART_IDS[COMPONENT_TIMED_PART]
+
+    def whole():
+        return components.connected_components_device(grid_t == pid, "face")[1]
+
+    def bbox():
+        return _label_part(grid_t, pid)[1]
+
+    check(whole() == bbox(), "the whole grid and the part's bbox give other component counts")
+    times = {"whole": [], "bbox": []}
+    for name in ("whole", "bbox", "bbox", "whole"):
+        torch.cuda.synchronize()
+        times[name] += [s * 1e3 for s in _host_s(whole if name == "whole" else bbox, 10)]
+    log(f"components unfused-route labelling of Bibi@512 {COMPONENT_TIMED_PART}, host ms with the read of n: "
+        f"whole grid median={np.median(times['whole']):.4f} ({times['whole']}); "
+        f"bbox + crop median={np.median(times['bbox']):.4f} ({times['bbox']})")
+    out["components"].update({"unfused_whole_grid_ms": float(np.median(times["whole"])),
+                              "unfused_bbox_ms": float(np.median(times["bbox"]))})
+    log(f"phase 2 components: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -998,6 +1219,18 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
               f"package's two routes agree {jax_routes_agree}")
         return digest, jax_routes_agree
 
+    # the unfused carves (steps 1-3) label on the card: count the kernels'
+    # launches there, and fail if a card tensor reaches a plain or host route
+    def refuse(name):
+        def route(*a, **k):
+            raise SmokeFailure(f"stage1 api: the unfused route reached components.{name} on the card")
+        return mock.patch.object(components, name, route)
+
+    routes = contextlib.ExitStack()
+    for name in ("components_plain", "component_stats_plain", "_host_scipy_label", "_host_component_stats"):
+        routes.enter_context(refuse(name))
+    components_kernel.launches = component_stats_kernel.launches = 0
+
     # 1. Bibi@512: cold and warm, against the JAX grids and the fused route
     times = []
     torch.cuda.reset_peak_memory_stats()
@@ -1031,6 +1264,8 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
     check(np.array_equal(g, grid), "the stage-1 steps one by one do not give carve_monument's grid")
     for ln in timer.report().splitlines():
         log(f"stage1 api StageTimer {ln}")
+    log(f"stage1 api StageTimer guided_s={timer.times['guided']:.3f} recolor_s={timer.times['recolor']:.3f} "
+        f"(PR 8, host labels: 1.039 / 4.323 s after the study, 1.088 / 1.343 s alone)")
     wall, busy, top, _ = _device_profile(lambda: carve_monument(masks, device=device))
     log(f"stage1 api profiled: wall_s={wall:.3f} device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
     for name, ms, n in top[:5]:
@@ -1063,6 +1298,10 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
               f"{str(fxp[f'{key}_sha256'])[:12]}")
         log(f"stage1 api: test preset {key}: sha256 {digest[:12]} = JAX, {secs:.3f} s "
             f"(the JAX package's CPU run: {float(fxp[f'seconds_{key}']):.1f} s)")
+    routes.close()
+    launches = {"components": components_kernel.launches, "component_stats": component_stats_kernel.launches}
+    log(f"stage1 api: launches over the unfused carves: {launches}")
+    check(all(launches.values()), f"the unfused carves did not launch every components kernel: {launches}")
     refused = _refusal(lambda: carve_monument_fused(masks, other, device=device))
     check("pbr3d_torch.carving.stage1.carve_monument" in refused,
           f"carve_monument_fused does not refuse the test preset with the new message: {refused!r}")
@@ -1108,6 +1347,7 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
     log("stage1 api: utils.viz is not run on the card (matplotlib is not installed there); "
         "tests/test_torch_viz.py holds it against the JAX package on the CPU")
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    return launches
 
 
 def _sha256_counts(grid: np.ndarray):
@@ -1744,13 +1984,14 @@ def main() -> int:
         log(f"evaluation alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
         return 0
 
+    fx = np.load(FIXTURE)
     kernel = phase_kernel()
     knn = phase_knn_kernel()
+    comps = phase_components_kernel(fx)
     if sys.argv[1:] == ["kernels"]:
         log(f"kernels alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
         return 0
 
-    fx = np.load(FIXTURE)
     min_dist2_kernel.launches = 0  # count the main path only
     grid, fused_times = phase_stage1(fx)
     launches = phase_metrics(fx, grid)
@@ -1761,7 +2002,7 @@ def main() -> int:
     log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
     produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"]),
                 "256": phase_study(fxs, "256", card)}
-    phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
+    launches9 = phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
     t8 = time.perf_counter()
     taj = phase_eval_nb4(fxs, ev, card, produced)
     del produced
@@ -1777,7 +2018,9 @@ def main() -> int:
     }, {
         "name": "knn", "route": "cuda", "source": "pbr3d_torch/csrc/knn.cu",
         "replaces": "pbr3d/ops/neighbors.py:122", "launches": launches8["knn"], **knn,
-    }]}))
+    }] + [{"name": name, "route": "cuda", "source": "pbr3d_torch/csrc/components.cu",
+           "replaces": f"pbr3d/ops/components.py:{line}", "launches": launches9[name], **comps[name]}
+          for name, line in (("components", 114), ("component_stats", 367))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

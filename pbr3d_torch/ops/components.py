@@ -1,11 +1,27 @@
-"""Connected components on the host (scipy/numpy) — the production path.
+"""Connected components and their statistics, on the host and on the card.
 
-Copied from ``pbr3d.ops.components`` (whose module imports jax): the
-scipy-identical labeller and the bbox/count/centroid statistics that stage 1's
-component-guided carve and back-minaret recolor and stage 2's minaret
-keypoints consume.  The JAX package's device labeller is not ported;
-production routes labelling to the host, and so do the public
-:func:`connected_components` and :func:`component_stats` here.
+Port of ``pbr3d.ops.components`` (whose module imports jax).  Which route
+each entry takes:
+
+* :func:`connected_components_device` labels a tensor where it lies: a
+  CUDA tensor through the hand-written kernel
+  (:func:`pbr3d_torch.ops.cuda_kernels.components_kernel`, which raises on
+  a failed build or launch), a CPU tensor through its plain PyTorch version
+  (:func:`pbr3d_torch.ops.cuda_kernels.components_plain`).  The labels stay
+  on the tensor's device, for the unfused stage-1 route, which slices them
+  there (:mod:`pbr3d_torch.carving.stage1`).
+* :func:`connected_components` returns host numpy: a numpy mask goes to the
+  host labeller :func:`_host_scipy_label`, a tensor through
+  :func:`connected_components_device`.
+* :func:`component_stats` returns host numpy: numpy labels go to
+  :func:`_host_component_stats`, a tensor to the device statistics
+  (:func:`pbr3d_torch.ops.cuda_kernels.component_stats_kernel` on the
+  card, :func:`~pbr3d_torch.ops.cuda_kernels.component_stats_plain` on the
+  CPU), whose values are bit-equal to the host's.
+
+Every route numbers components 1..n in scipy's raster order (the order of
+each component's first voxel).  The fused stage-1 route, the keypoints,
+the voxel helpers and the morphology call the host helpers explicitly.
 """
 
 from __future__ import annotations
@@ -13,8 +29,13 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
-_BIG = np.int32(2**30)
+from pbr3d_torch.ops.cuda_kernels import (
+    COMPONENTS_BIG, component_stats_kernel, component_stats_plain, components_kernel, components_plain,
+)
+
+_BIG = np.int32(COMPONENTS_BIG)
 
 
 def _host_component_stats(labels: np.ndarray, n: int, centroid_axes=None):
@@ -152,16 +173,76 @@ def _host_scipy_label(mask_np: np.ndarray, connectivity: str) -> Tuple[np.ndarra
     return labels.astype(np.int32), int(n)
 
 
+def _volume(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A 2- or 3-D tensor as a contiguous (X, Y, Z) volume; a plane (H, W)
+    becomes (1, H, W)."""
+    if t.dim() not in (2, 3):
+        raise ValueError(f"{what} must have 2 or 3 dims, got shape {tuple(t.shape)}")
+    return t.contiguous().reshape((1,) * (3 - t.dim()) + tuple(t.shape))
+
+
+def connected_components_device(mask, connectivity: str = "face", max_k: int = 256):
+    """Like :func:`connected_components` but keeping the labels on the
+    mask's device, for consumers that slice or compare them there.
+
+    ``mask``: a bool or uint8 tensor (any other dtype: non-zero is set) of
+    2 or 3 dims; an array goes to the CPU.  Returns ``(labels int32 of the
+    mask's shape on its device, n)``: 0 is background, 1..n in scipy raster
+    order, as :func:`_host_scipy_label`.  A CUDA tensor goes to the
+    kernel, a CPU tensor to its plain version.  ``max_k`` is accepted for
+    the JAX signature's sake and has no effect: the JAX package's static
+    shapes cap the component count there (and fall back to the host past
+    it); here nothing is static, so no cap and no fallback exist."""
+    del max_k
+    mask = torch.as_tensor(mask)
+    m = mask if mask.dtype in (torch.bool, torch.uint8) else mask != 0
+    vol = _volume(m, "mask").view(torch.uint8)
+    full = connectivity == "full"
+    if vol.device.type == "cuda":
+        labels, n = components_kernel(vol, full)
+    elif vol.device.type == "cpu":
+        labels, n = components_plain(vol, full)
+    else:
+        raise ValueError(f"connected_components_device: unsupported device {vol.device}")
+    return labels.view(mask.shape), n
+
+
 def connected_components(mask, connectivity: str = "face") -> Tuple[np.ndarray, int]:
-    """Label connected components of a boolean 2D/3D host mask.
+    """Label connected components of a boolean 2D/3D mask.
 
     ``connectivity``: "face" (scipy default: 4-conn in 2D, 6-conn in 3D) or
     "full" (3^d box: 8-conn in 2D, 26-conn in 3D).  Returns ``(labels int32,
-    n)``: 0 is background, 1..n in scipy raster order."""
+    n)`` as host numpy: 0 is background, 1..n in scipy raster order.  A
+    numpy mask is labelled on the host, a tensor where it lies
+    (:func:`connected_components_device`)."""
+    if isinstance(mask, torch.Tensor):
+        labels, n = connected_components_device(mask, connectivity)
+        return labels.cpu().numpy(), n
     return _host_scipy_label(np.asarray(mask), connectivity)
 
 
-def component_stats(labels: np.ndarray, n: int):
+def component_stats(labels, n: int):
     """Per-component ``bbox_min``, ``bbox_max`` (inclusive), ``centroid`` and
-    ``count``, host arrays indexed by component id 1..n (row 0 unused)."""
-    return _host_component_stats(np.asarray(labels), n)
+    ``count``, host arrays indexed by component id 0..n (row 0 and empty
+    ids: bbox 2**30 / -1, centroid 0, count 0).  Numpy labels are measured
+    on the host; a tensor of 2 or 3 dims where it lies, in exact int64
+    counts and sums, which give the host's values bit for bit."""
+    if not isinstance(labels, torch.Tensor):
+        return _host_component_stats(np.asarray(labels), n)
+    nd = labels.dim()
+    vol = _volume(labels.to(torch.int32), "labels")
+    if vol.device.type == "cuda":
+        stats = component_stats_kernel(vol, n)
+    elif vol.device.type == "cpu":
+        stats = component_stats_plain(vol, n)
+    else:
+        raise ValueError(f"component_stats: unsupported device {vol.device}")
+    mins, maxs, count, sums = (t.cpu().numpy() for t in stats)
+    mins, maxs, sums = (np.ascontiguousarray(a[:, 3 - nd:]) for a in (mins, maxs, sums))
+    counts = count.astype(np.float64)
+    centroid = np.zeros((n + 1, nd), np.float64)
+    occupied = count > 0
+    # exact integers in float64 (below 2**53), one division each: the host's
+    # float64 bincounts and dot products give these bits
+    centroid[occupied] = sums[occupied].astype(np.float64) / counts[occupied][:, None]
+    return {"bbox_min": mins, "bbox_max": maxs, "centroid": centroid, "count": counts}

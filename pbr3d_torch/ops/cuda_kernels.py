@@ -5,7 +5,11 @@
 (see ``pbr3d_torch/csrc/min_dist2.cu`` for its design); ``knn_kernel`` is
 the k-nearest-neighbour kernel of the same family
 (``pbr3d_torch/csrc/knn.cu``), which replaces the XLA program
-``pbr3d.ops.neighbors._knn_padded``.  The kernels are built from
+``pbr3d.ops.neighbors._knn_padded``; ``components_kernel`` and
+``component_stats_kernel`` (``pbr3d_torch/csrc/components.cu``) label the
+connected components of a mask and measure them, replacing the XLA
+programs ``pbr3d.ops.components._label_roots``, ``_label_dense_device``
+and ``_component_stats_jit``.  The kernels are built from
 ``pbr3d_torch/csrc/`` at first use by ``nvcc`` for ``sm_90a`` (one compile
 per source, all started together, then one link) into a shared library with
 a plain C interface, under ``build/torch_kernels/`` at the root of the
@@ -16,8 +20,9 @@ Beside each kernel sits its plain PyTorch version, which the CPU tests use
 and the on-card smoke compares the kernel against.  A kernel wrapper
 accepts CUDA tensors only and raises on anything else, and on a failed
 build or launch; choosing the plain version for CPU tensors is the job of
-:func:`pbr3d_torch.ops.neighbors.min_dist2` and
-:func:`pbr3d_torch.ops.neighbors.knn2`.
+:func:`pbr3d_torch.ops.neighbors.min_dist2`,
+:func:`pbr3d_torch.ops.neighbors.knn2` and the device functions of
+:mod:`pbr3d_torch.ops.components`.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("min_dist2.cu", "knn.cu")
+_SOURCES = ("min_dist2.cu", "knn.cu", "components.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -119,6 +124,15 @@ def load_extension() -> ctypes.CDLL:
             tuple(map(knn_capacity, (1, 3, 20, KNN_MAX_K))) + (0,))
     if got != want:
         raise RuntimeError(f"{lib_path.name}: knn's step, blocks and capacities {got}, expected {want}")
+    lib.pbr3d_components.argtypes = [_P, _I32, _I32, _I32, _I32, _P, _P, _P]
+    lib.pbr3d_components.restype = _I32
+    lib.pbr3d_components_relabel.argtypes = [_P, _P, _I64, _P]
+    lib.pbr3d_components_relabel.restype = _I32
+    lib.pbr3d_component_stats.argtypes = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P]
+    lib.pbr3d_component_stats.restype = _I32
+    if lib.pbr3d_components_big() != COMPONENTS_BIG:
+        raise RuntimeError(f"{lib_path.name}: components' background label {lib.pbr3d_components_big()}, "
+                           f"expected {COMPONENTS_BIG}")
     lib.build_log = log_path.read_text() if log_path.exists() else ""
     return lib
 
@@ -347,3 +361,143 @@ def knn_plain(A: torch.Tensor, B: torch.Tensor, k: int):
         d2[i0 : i0 + rows, :kk] = (best >> 32).to(torch.int32).view(torch.float32)
         idx[i0 : i0 + rows, :kk] = best & 0xFFFFFFFF
     return d2, _redirect_unreachable(d2, idx)
+
+
+#: The components kernels' background label (``pbr3d/ops/components.py``'s
+#: ``_BIG``), which bounds a mask's voxel count; the library is checked
+#: against it.
+COMPONENTS_BIG = 1 << 30
+
+
+def _check_volume(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 3:
+        raise ValueError(f"{name} must have shape (X, Y, Z), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.numel() >= COMPONENTS_BIG:
+        raise ValueError(f"{name} has {t.numel()} voxels, the kernels take fewer than {COMPONENTS_BIG}")
+
+
+def components_kernel(mask: torch.Tensor, full: bool):
+    """Connected components of an (X, Y, Z) contiguous uint8 CUDA mask
+    (non-zero is foreground) under face (6) or, with ``full``, 26
+    connectivity: (labels (X, Y, Z) int32, n), 0 on the background and 1..n
+    in the raster order of each component's first voxel, as
+    ``scipy.ndimage.label`` numbers them.  Launches the run, merge and
+    compress kernels, ``torch.cumsum`` over the root flags, then the relabel
+    kernel, on the current stream; reading n back synchronises.  An empty
+    mask launches nothing."""
+    _check_volume(mask, "mask", torch.uint8)
+    labels = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+    if mask.numel() == 0:
+        return labels, 0
+    lib = load_extension()
+    roots = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on(lib.pbr3d_components(mask.data_ptr(), *mask.shape, int(bool(full)), labels.data_ptr(),
+                                       roots.data_ptr(), stream), "components launch")
+        rank = torch.cumsum(roots.view(-1), 0, dtype=torch.int32)
+        del roots
+        _raise_on(lib.pbr3d_components_relabel(labels.data_ptr(), rank.data_ptr(), labels.numel(), stream),
+                  "components relabel launch")
+    components_kernel.launches += 1
+    return labels, int(rank[-1])
+
+
+components_kernel.launches = 0
+
+
+def _shift_min(lab: torch.Tensor, axis: int) -> torch.Tensor:
+    """min(lab, lab shifted by ±1 along ``axis``), nothing from past the
+    border."""
+    out = lab.clone()
+    n = lab.shape[axis]
+    if n > 1:
+        lo, hi = out.narrow(axis, 0, n - 1), out.narrow(axis, 1, n - 1)
+        lo.copy_(torch.minimum(lo, lab.narrow(axis, 1, n - 1)))
+        hi.copy_(torch.minimum(hi, lab.narrow(axis, 0, n - 1)))
+    return out
+
+
+def components_plain(mask: torch.Tensor, full: bool):
+    """Plain PyTorch version of :func:`components_kernel`, on any device: the
+    JAX package's relaxation (``pbr3d.ops.components._label_roots``) without
+    its segmented scans.  Every foreground voxel starts at its flat index;
+    each step takes the masked minimum over the face cross or the full 3³
+    box, then jumps pointers (``lab = lab.view(-1)[lab]``) until they stop
+    moving; the loop ends at its fixpoint, where each voxel holds its
+    component's smallest flat index.  The same dense relabel follows."""
+    m = mask.bool().contiguous()
+    shape, N = m.shape, m.numel()
+    labels = torch.zeros(shape, dtype=torch.int32, device=m.device)
+    if N == 0:
+        return labels, 0
+    big = torch.tensor(COMPONENTS_BIG, dtype=torch.int32, device=m.device)
+    idx = torch.arange(N, dtype=torch.int32, device=m.device).view(shape)
+    lab = torch.where(m, idx, big)
+    while True:
+        out = lab
+        for ax in range(3):
+            out = _shift_min(out, ax) if full else torch.minimum(out, _shift_min(lab, ax))
+        new = torch.where(m, out, big)
+        while True:
+            flat = new.view(-1)
+            jumped = torch.where(m, flat.index_select(0, flat.clamp(max=N - 1)).view(shape), big)
+            if torch.equal(jumped, new):
+                break
+            new = jumped
+        if torch.equal(new, lab):
+            break
+        lab = new
+    rank = torch.cumsum((lab == idx).view(-1), 0, dtype=torch.int32)
+    labels = torch.where(m, rank.index_select(0, lab.view(-1).clamp(max=N - 1)).view(shape), labels)
+    return labels, int(rank[-1])
+
+
+def component_stats_kernel(labels: torch.Tensor, n: int):
+    """Statistics of ids 1..n in an (X, Y, Z) contiguous int32 CUDA label
+    volume: (bbox min (n + 1, 3), bbox max (n + 1, 3) inclusive, count
+    (n + 1,), coordinate sums (n + 1, 3)), all int64 on the card; row 0 and
+    absent ids keep (2**30, -1, 0, 0), other labels are ignored.  Launches on
+    the current stream without synchronising."""
+    _check_volume(labels, "labels", torch.int32)
+    if not 0 <= n < COMPONENTS_BIG:
+        raise ValueError(f"n must be in 0..{COMPONENTS_BIG - 1}, got {n}")
+    rows, dev = n + 1, labels.device
+    mins = torch.full((rows, 3), COMPONENTS_BIG, dtype=torch.int32, device=dev)
+    maxs = torch.full((rows, 3), -1, dtype=torch.int32, device=dev)
+    count = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    sums = torch.zeros((rows, 3), dtype=torch.int64, device=dev)
+    if n and labels.numel():
+        lib = load_extension()
+        with torch.cuda.device(dev):
+            _raise_on(lib.pbr3d_component_stats(labels.data_ptr(), *labels.shape, rows, mins.data_ptr(),
+                                                maxs.data_ptr(), count.data_ptr(), sums.data_ptr(),
+                                                torch.cuda.current_stream().cuda_stream),
+                      "component stats launch")
+        component_stats_kernel.launches += 1
+    return mins.long(), maxs.long(), count, sums
+
+
+component_stats_kernel.launches = 0
+
+
+def component_stats_plain(labels: torch.Tensor, n: int):
+    """Plain PyTorch version of :func:`component_stats_kernel`, on any
+    device: ``scatter_reduce`` amin / amax of the voxels' coordinates, an
+    int64 ``bincount`` and int64 ``index_add_`` sums."""
+    rows, dev = n + 1, labels.device
+    coords = torch.nonzero((labels > 0) & (labels <= n))  # (K, 3) int64
+    lab = labels[tuple(coords.unbind(1))].long()
+    at = lab[:, None].expand(-1, 3)
+    mins = torch.full((rows, 3), COMPONENTS_BIG, dtype=torch.int64, device=dev)
+    mins.scatter_reduce_(0, at, coords, "amin")
+    maxs = torch.full((rows, 3), -1, dtype=torch.int64, device=dev).scatter_reduce_(0, at, coords, "amax")
+    count = torch.bincount(lab, minlength=rows)
+    sums = torch.zeros((rows, 3), dtype=torch.int64, device=dev).index_add_(0, lab, coords)
+    return mins, maxs, count, sums
