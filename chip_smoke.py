@@ -106,7 +106,10 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    to the fused route's grid exactly where the JAX package's two routes
    agree; the unfused carves label on the card: both components kernels'
    launches over them must be positive, and a card tensor reaching a plain
-   or host labeller fails the phase;
+   or host labeller fails the phase; the shape of every mask they label is
+   logged, both kernels' calls there are timed (fenced host clock) against
+   their summed byte bound, and both are timed on the largest mask as in
+   phase 2;
    ``rotate_y_binary_u8`` and ``rotate_y`` on the Bibi@512 occupancy at
    ``ROTATE_ANGLES``, the card's bytes equal to CPU tensors'; the hole
    closing and small-region removal of Bibi's front plane, card against
@@ -125,6 +128,7 @@ there is no CUDA device or any check fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -258,14 +262,19 @@ KNN_TIMED = ((50000, 50000, 2), (120000, 120000, 20), (100000, 100000, 1), (1857
 #: slab with holes; an empty and a full grid of Bibi@512's shape; a 3-D
 #: spiral (``helix``: open rings at every other x, one voxel thick, ~38k
 #: voxels in one path); a checkerboard (8.4 M components under face, one
-#: under full).  Phase 2 adds the Bibi@512 part masks and the fused route's
-#: bbox crops.
+#: under full); rows of 31, 33, 129 and 513 voxels and a plane whose rows
+#: are not a multiple of 32 voxels, whose runs cross the kernel's 32-voxel
+#: words; rows of 512 set voxels beside rows of one-voxel runs
+#: (``stripes``).  Phase 2 adds the Bibi@512 part masks and the fused
+#: route's bbox crops.
 COMPONENT_CASES = (
     ("random:0.3", (160, 160, 160)), ("random:0.6", (160, 160, 160)), ("random:0.75", (160, 160, 160)),
     ("random:0.3", (1, 2048, 2048)), ("random:0.6", (1, 2048, 2048)), ("random:0.75", (1, 2048, 2048)),
     ("random:0.6", (1, 7, 300001)), ("random:0.6", (333, 1, 1021)), ("random:0.6", (1023, 1025, 3)),
     ("on", (1, 1, 1)), ("off", (1, 1, 1)), ("slab", (257, 300, 311)), ("off", (512, 318, 512)),
     ("on", (512, 318, 512)), ("helix", (79, 202, 202)), ("checker", (255, 256, 257)),
+    ("random:0.6", (96, 96, 31)), ("random:0.6", (96, 96, 33)), ("random:0.75", (64, 64, 129)),
+    ("random:0.6", (32, 32, 513)), ("random:0.6", (1, 999, 1001)), ("stripes", (24, 24, 512)),
 )
 #: Each case's kernel runs this often; every run must give the same bytes.
 COMPONENT_RUNS = 3
@@ -613,6 +622,9 @@ def component_case_mask(kind: str, shape) -> np.ndarray:
         return np.full(shape, name == "on")
     if name == "checker":
         return np.indices(shape, np.int16).sum(axis=0) % 2 == 0
+    if name == "stripes":  # (x + y) even: the whole row; odd: every other voxel
+        x, y, z = np.indices(shape, np.int32)
+        return ((x + y) % 2 == 0) | (z % 2 == x % 2)
     g = np.zeros(shape, bool)
     if name == "slab":
         g[shape[0] // 2] = np.random.default_rng(7).random(shape[1:]) < 0.7
@@ -689,14 +701,80 @@ def _host_s(fn, reps: int) -> list:
     return out
 
 
+#: The labelling's passes, as the profiler names their kernels.
+COMPONENT_PASSES = ("runs_kernel", "merge_kernel", "rank_kernel", "scan_kernel", "label_kernel")
+
+
+def components_pass_ms(vol: torch.Tensor, full: bool, reps: int = 10):
+    """Device ms a call of each labelling pass, under ``torch.profiler`` over
+    ``reps`` calls of ``components_kernel``; None when three traces in a row
+    lack some of the launches (late in the whole smoke one trace held a
+    sixth of them)."""
+    for _ in range(3):
+        by_name = _device_profile(lambda: [components_kernel(vol, full) for _ in range(reps)])[3]
+        out, seen = dict.fromkeys(COMPONENT_PASSES, 0.0), dict.fromkeys(COMPONENT_PASSES, 0)
+        for name, (ms, n) in by_name.items():
+            for step in COMPONENT_PASSES:
+                if step in name:
+                    out[step] += ms / reps
+                    seen[step] += n
+        if all(n == reps for n in seen.values()):
+            return out
+        log(f"components: the trace holds {seen} of {reps} launches a pass; profiling again")
+    return None
+
+
+def time_components(mask: np.ndarray, tag: str) -> dict:
+    """Both components kernels on one host mask under face connectivity,
+    each timed in turns with its plain version by CUDA events (the
+    labelling's wrapper reads n back, so its time holds the host's part of
+    a call), beside its byte bound, host scipy and the host statistics, and
+    the labelling's device ms by pass.  Returns {"components": ...,
+    "component_stats": ...}, each key suffixed by ``tag``."""
+    mask = np.ascontiguousarray(mask)
+    vol = torch.from_numpy(mask.view(np.uint8)).cuda()
+    labels, n = components_kernel(vol, False)
+    samples: list = []
+    with smi_samples(samples):
+        t = time_in_turns(
+            {"kernel": lambda: components_kernel(vol, False), "plain": lambda: components_plain(vol, False),
+             "stats": lambda: component_stats_kernel(labels, n),
+             "stats_plain": lambda: component_stats_plain(labels, n)},
+            {"kernel": 20, "plain": 1, "stats": 20, "stats_plain": 1},
+            ["kernel", "plain", "stats", "stats_plain", "stats_plain", "stats", "plain", "kernel"])
+    passes = components_pass_ms(vol, False)
+    host = _host_s(lambda: components._host_scipy_label(mask, "face"), 2)
+    scipy_s = _host_s(lambda: scipy.ndimage.label(mask), 2)
+    ref = labels.cpu().numpy()
+    host_stats = _host_s(lambda: components._host_component_stats(ref, n), 2)
+    bound, stats_bound = components_bound(mask.size)
+    ms, plain_ms, sms, splain = (float(np.mean(t[k])) for k in ("kernel", "plain", "stats", "stats_plain"))
+    device_ms = sum(passes.values()) if passes else None
+    by_pass = (f"{ {k: round(v, 4) for k, v in passes.items()} } sum={device_ms:.4f} (share {bound / device_ms:.3f})"
+               if passes else "not measured (the traces lacked launches)")
+    log(f"components {tag or COMPONENT_TIMED_PART} {mask.shape} n={n}: kernel_ms={t['kernel']} plain_ms={t['plain']} "
+        f"host _host_scipy_label_ms={[s * 1e3 for s in host]} scipy.ndimage.label_ms={[s * 1e3 for s in scipy_s]} "
+        f"bound_ms={bound:.4f} (bytes) share_of_bound={bound / ms:.3f}; device ms by pass {by_pass}; "
+        f"{smi_summary(samples)}")
+    log(f"component_stats {tag or COMPONENT_TIMED_PART}: kernel_ms={t['stats']} plain_ms={t['stats_plain']} "
+        f"host _host_component_stats_ms={[s * 1e3 for s in host_stats]} bound_ms={stats_bound:.4f} (bytes) "
+        f"share_of_bound={stats_bound / sms:.3f}")
+    return {"components": {f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": bound,
+                           f"device_ms{tag}": device_ms, f"host_scipy_label_ms{tag}": float(np.mean(host)) * 1e3},
+            "component_stats": {f"ms{tag}": sms, f"plain_ms{tag}": splain, f"bound_ms{tag}": stats_bound,
+                                f"host_component_stats_ms{tag}": float(np.mean(host_stats)) * 1e3}}
+
+
 def phase_components_kernel(fx) -> dict:
     """The components kernels against their plain versions and host scipy at
     every ``COMPONENT_CASES`` case, on the Bibi@512 part masks of the JAX
     grid (phase 3's grid, which phase 3 holds equal to it) and on the bbox
     crops the fused route labels; then kernel, plain version and host scipy
-    timed in turns on the path's part mask and on the whole occupancy, and
-    the whole grid against the part's bbox as what the unfused route
-    labels."""
+    timed in turns on the path's part mask and on the whole occupancy (with
+    the labelling's device time by pass), and the whole grid against the
+    part's bbox as what the unfused route labels.  Phase 9 times the
+    largest mask its unfused carves label the same way
+    (``time_components``)."""
     t0 = time.perf_counter()
     for kind, shape in COMPONENT_CASES:
         mask = component_case_mask(kind, shape)
@@ -728,35 +806,8 @@ def phase_components_kernel(fx) -> dict:
     out = {key: {"max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None}
            for key in ("components", "component_stats")}
     for name in (COMPONENT_TIMED_PART, "occupancy"):
-        mask = parts[name]
-        vol = torch.from_numpy(mask.view(np.uint8)).cuda()
-        labels, n = components_kernel(vol, False)
-        samples: list = []
-        with smi_samples(samples):
-            t = time_in_turns(
-                {"kernel": lambda: components_kernel(vol, False), "plain": lambda: components_plain(vol, False),
-                 "stats": lambda: component_stats_kernel(labels, n),
-                 "stats_plain": lambda: component_stats_plain(labels, n)},
-                {"kernel": 20, "plain": 1, "stats": 20, "stats_plain": 1},
-                ["kernel", "plain", "stats", "stats_plain", "stats_plain", "stats", "plain", "kernel"])
-        host = _host_s(lambda: components._host_scipy_label(mask, "face"), 2)
-        scipy_s = _host_s(lambda: scipy.ndimage.label(mask), 2)
-        ref = labels.cpu().numpy()
-        host_stats = _host_s(lambda: components._host_component_stats(ref, n), 2)
-        bound, stats_bound = components_bound(mask.size)
-        ms, plain_ms, sms, splain = (float(np.mean(t[k])) for k in ("kernel", "plain", "stats", "stats_plain"))
-        log(f"components {name} {mask.shape} n={n}: kernel_ms={t['kernel']} plain_ms={t['plain']} "
-            f"host _host_scipy_label_ms={[s * 1e3 for s in host]} scipy.ndimage.label_ms={[s * 1e3 for s in scipy_s]} "
-            f"bound_ms={bound:.4f} (bytes) share_of_bound={bound / ms:.3f}; {smi_summary(samples)}")
-        log(f"component_stats {name}: kernel_ms={t['stats']} plain_ms={t['stats_plain']} "
-            f"host _host_component_stats_ms={[s * 1e3 for s in host_stats]} bound_ms={stats_bound:.4f} (bytes) "
-            f"share_of_bound={stats_bound / sms:.3f}")
-        tag = "" if name == COMPONENT_TIMED_PART else f"_{name}"
-        out["components"].update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"bound_ms{tag}": bound,
-                                  f"host_scipy_label_ms{tag}": float(np.mean(host)) * 1e3})
-        out["component_stats"].update({f"ms{tag}": sms, f"plain_ms{tag}": splain, f"bound_ms{tag}": stats_bound,
-                                       f"host_component_stats_ms{tag}": float(np.mean(host_stats)) * 1e3})
-        del labels
+        for key, times in time_components(parts[name], "" if name == COMPONENT_TIMED_PART else f"_{name}").items():
+            out[key].update(times)
         torch.cuda.empty_cache()
 
     # what the unfused route labels: the part's bbox (found on the card,
@@ -1229,6 +1280,30 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
     routes = contextlib.ExitStack()
     for name in ("components_plain", "component_stats_plain", "_host_scipy_label", "_host_component_stats"):
         routes.enter_context(refuse(name))
+    # the shape of every mask the carves label, the largest mask itself, and
+    # the host seconds of each kernel's calls there (fenced on the card)
+    shapes, largest, spent = [], {}, {"components": 0.0, "component_stats": 0.0}
+
+    def recording(vol, full):
+        shapes.append((tuple(vol.shape), bool(full)))
+        if vol.numel() > largest.get("numel", -1):
+            largest.update(numel=vol.numel(), mask=vol.bool().cpu().numpy(), full=bool(full))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = components_kernel(vol, full)  # reads n back
+        spent["components"] += time.perf_counter() - t0
+        return out
+
+    def recording_stats(labels, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = component_stats_kernel(labels, n)
+        torch.cuda.synchronize()
+        spent["component_stats"] += time.perf_counter() - t0
+        return out
+
+    routes.enter_context(mock.patch.object(components, "components_kernel", recording))
+    routes.enter_context(mock.patch.object(components, "component_stats_kernel", recording_stats))
     components_kernel.launches = component_stats_kernel.launches = 0
 
     # 1. Bibi@512: cold and warm, against the JAX grids and the fused route
@@ -1302,6 +1377,22 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
     launches = {"components": components_kernel.launches, "component_stats": component_stats_kernel.launches}
     log(f"stage1 api: launches over the unfused carves: {launches}")
     check(all(launches.values()), f"the unfused carves did not launch every components kernel: {launches}")
+    by_shape = sorted(collections.Counter(shapes).items(), key=lambda kv: -int(np.prod(kv[0][0])))
+    log(f"stage1 api: the {len(shapes)} masks the unfused carves labelled, largest first, "
+        f"((X, Y, Z), full): count: {by_shape}")
+    bounds = [components_bound(int(np.prod(shape))) for shape, _ in shapes]
+    path = {"components": {"path_ms": spent["components"] * 1e3, "path_bound_ms": sum(b[0] for b in bounds)},
+            "component_stats": {"path_ms": spent["component_stats"] * 1e3,
+                                "path_bound_ms": sum(b[1] for b in bounds)}}
+    for name, v in path.items():
+        log(f"stage1 api: {name} over the unfused carves: {launches[name]} calls, {v['path_ms']:.4f} ms of host "
+            f"clock (fenced, the wrapper's host part included) against a summed byte bound of "
+            f"{v['path_bound_ms']:.4f} ms: {v['path_ms'] - v['path_bound_ms']:.4f} ms above it")
+    check(not largest["full"], "the largest mask of the unfused carves is labelled under full connectivity")
+    crop = time_components(largest["mask"], "_path_crop")
+    for name in crop:
+        crop[name].update(path[name])
+    del largest
     refused = _refusal(lambda: carve_monument_fused(masks, other, device=device))
     check("pbr3d_torch.carving.stage1.carve_monument" in refused,
           f"carve_monument_fused does not refuse the test preset with the new message: {refused!r}")
@@ -1347,7 +1438,7 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
     log("stage1 api: utils.viz is not run on the card (matplotlib is not installed there); "
         "tests/test_torch_viz.py holds it against the JAX package on the CPU")
     log(f"phase 9: {time.perf_counter() - t9:.1f} s")
-    return launches
+    return launches, crop
 
 
 def _sha256_counts(grid: np.ndarray):
@@ -2002,7 +2093,7 @@ def main() -> int:
     log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
     produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"]),
                 "256": phase_study(fxs, "256", card)}
-    launches9 = phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
+    launches9, crop9 = phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
     t8 = time.perf_counter()
     taj = phase_eval_nb4(fxs, ev, card, produced)
     del produced
@@ -2019,7 +2110,8 @@ def main() -> int:
         "name": "knn", "route": "cuda", "source": "pbr3d_torch/csrc/knn.cu",
         "replaces": "pbr3d/ops/neighbors.py:122", "launches": launches8["knn"], **knn,
     }] + [{"name": name, "route": "cuda", "source": "pbr3d_torch/csrc/components.cu",
-           "replaces": f"pbr3d/ops/components.py:{line}", "launches": launches9[name], **comps[name]}
+           "replaces": f"pbr3d/ops/components.py:{line}", "launches": launches9[name], **comps[name],
+           **crop9[name]}
           for name, line in (("components", 114), ("component_stats", 367))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,43 +21,83 @@
 // What bounds it on an H100: bytes.  Labelling must read the mask (1 B a
 // voxel) and write the labels (4 B); the statistics must read the labels
 // (4 B).  At 3.35 TB/s the Bibi@512 grid (83,361,792 voxels) takes 0.124 ms
-// and 0.100 ms.  The work per voxel is a few integer operations.  What the
-// design does about it:
+// and 0.100 ms.  The work per voxel is a few integer operations.
 //
-// * Labelling is union-find label equivalence (Playne & Hawick 2018, with
-//   the row runs of the block-based variants of Allegretti, Bolelli & Grana
-//   2019), in four launches and one PyTorch scan:
-//   1. runs_kernel, a warp per row (x, y): each foreground voxel's parent
-//      is the first voxel of its run along z, found by a ballot of the
-//      mask bits, 32 voxels a step; background gets kBig.  A run's voxels
-//      are then one set with a root one hop away.
-//   2. voxel_kernel<kMergeFace | kMergeFull>, a thread per voxel: union
-//      with the foreground neighbours of lower flat index off the row, the
-//      half stencil (2 for face, 12 for full; the 13th, z - 1, is the run).
-//      A voxel skips a neighbour column whose previous voxel along z it
-//      shares with the voxel before it in its run: that union was made one
-//      voxel earlier.  So a solid region makes one union per run and
-//      column instead of one per voxel and neighbour.  union links the
-//      larger root under the smaller with atomicMin, and retries from the
-//      value atomicMin returns when a root moved under it.  Parents only
-//      fall, every parent is below its child, and a root is the smallest
-//      flat index of its set: scipy's first voxel.  Parent reads bypass L1
-//      (__ldcg): other SMs' atomicMins land in L2.
-//   3. voxel_kernel<kCompress>: every voxel's parent becomes its root, and
-//      roots[i] = (root == i).  No union runs any more, so a plain find is
-//      exact; a read that sees another thread's compressed parent sees an
-//      ancestor.
-//   4. torch.cumsum of roots (the wrapper) gives rank[r], the dense id of
-//      root r, and voxel_kernel<kRelabel> writes labels[i] = rank[L[i]] in
-//      place (0 for kBig).
-//   Only the final roots are deterministic; the intermediate forest depends
-//   on the order of the atomics, the output does not.
-// * The statistics walk rows: a thread takes kSeg voxels of one row and
-//   folds each run of one label into a count, z range and sums (the sum of
-//   z over a run is (za + zb) * count / 2), so a component meets one update
-//   per run, not per voxel.  With at most kSlots labels the block keeps its
-//   own copy of every row in shared memory and adds it to the global rows
-//   at its end; with more, runs go straight to global atomics.
+// Labelling: union-find over the runs of each row (x, y) along z (Playne &
+// Hawick 2018; the runs as in the block-based variants of Allegretti,
+// Bolelli & Grana 2019).  A run is one set whose node is its first voxel s,
+// with L[s] its parent in L, the labels' own buffer; the other entries of L
+// hold nothing until the last pass writes them.  Five launches, no
+// voxel-sized scratch but the rows' bits:
+//   1. runs_kernel, a warp per row, reads the mask once, 16 B a lane (512
+//      voxels a warp step, by aligned 16-byte loads whether the row is
+//      aligned or not), and writes the row as bits, one 32-bit word per 32
+//      voxels (W = ceil(Z / 32) words a row; 1/8 B a voxel, 10.4 MB on
+//      Bibi@512, which stays in the 50 MB L2), and L[s] = s at each run
+//      start.  Nothing else of L is written.
+//   2. merge_kernel<full>, a thread per word, takes the word against the
+//      same word of each neighbour row of lower flat index: (x, y - 1) and
+//      (x - 1, y) for face; for full also (x - 1, y +- 1), and the
+//      neighbour rows dilated by one voxel along z.  A word of background
+//      ends there.  D = row AND neighbour; each maximal run of D lies in one
+//      run of each row, so its first bit makes one union of the two runs.
+//      Under full connectivity one run of D can touch two neighbour runs
+//      across a one-voxel gap; the bits where a neighbour run starts one
+//      voxel past a bit of D add those unions.  A run's start comes from
+//      the last zero before it: within the word by bit arithmetic, else
+//      from the words before it, read back (from L1/L2) while they are full.
+//      union links the larger root under the smaller by atomicMin and
+//      retries from the value atomicMin returns when a root moved under it;
+//      parents only fall, so a root is its set's smallest flat index:
+//      scipy's first voxel.  Two runs whose starts share a parent are
+//      skipped; a find points the start it began at to the root.  Parent
+//      reads go through L1, so that the finds of one SM that end at a large
+//      component's root do not all queue at its L2 slice; a stale parent is
+//      an older one, still an ancestor.
+//   3. rank_kernel, a warp per row, points every run start at its root (no
+//      union runs any more, so a plain find is exact), numbers the row's
+//      roots by a warp scan, stores -(number in the row) at each root and
+//      the row's count in offsets (X * Y + 1 ints, not a voxel-sized
+//      array).  scan_kernel turns the counts into the roots of the rows
+//      before each row, offsets[X * Y] = n, in one pass: tiles of 4096
+//      rows with decoupled look-back (Merrill & Garland 2016), numbered in
+//      the order the blocks start.
+//   4. label_kernel, a warp per row, writes all 4 B of every voxel, once: 0
+//      from the words on the background (a step of background takes no
+//      lookup), and on the foreground its run root's rank = offsets[root's
+//      row] + its number in that row, which is the raster order scipy
+//      numbers by.  It writes in place over L.  Other rows read only roots'
+//      entries, and a root's entry gives the same rank before its row
+//      overwrites it (-number, plus the offset) and after (the rank
+//      itself).  A row's own run starts are looked up before the warp
+//      writes that step (__syncwarp), and a run open at a step's end
+//      carries its rank into the next step.  The stores are coalesced: 4
+//      voxels a lane by int4 where the rows are 16-byte aligned, else one
+//      voxel a lane per 32.
+//   Only the final labels are deterministic; the forest depends on the
+//   order of the atomics, the output does not.
+//   Bytes a background voxel: 1 read and 1/8 written (pass 1), 1/8 read
+//   (pass 2: a word of background stops there), 1/8 (pass 3), 1/8 read and
+//   4 written (pass 4), the reads of words from L2: ~5.1 B of HBM against
+//   the bound's 5.  The foreground adds per word 1/8 B for each neighbour
+//   row and, per run and neighbour run, a union's finds and atomics in
+//   L1/L2.
+// * The statistics: a warp walks a segment of up to kStatSeg voxels of a
+//   row, 128 labels a step by one int4 load a lane (one coalesced 512 B
+//   request; where the rows are not 16-byte aligned, 32 labels a step by
+//   one coalesced 128 B load), the loads of 2 (or 4) steps in flight
+//   together.  A run starts where a label differs from the one before it
+//   (the lane before, by __shfl_up_sync); a max-scan over the lanes gives
+//   each voxel the start of its run; a run ends where the next label
+//   differs, and makes one update (count, z range, sums; the sum of z over
+//   a run is (za + zb) * count / 2).  The run open at a step's end is
+//   carried to the next step and to the segment's end, so a run makes one
+//   update however long it is.  A step whose labels all equal the open
+//   run's label (background included) costs one vote and no atomics; an
+//   all-background step closes the open run with one update.  With at most
+//   kSlots labels the block keeps its own copy of every row in shared
+//   memory and adds the rows it touched to the global rows at its end; with
+//   more, runs go straight to global atomics.  4 B a voxel read once.
 //
 // Plain C interface, no PyTorch headers: built by nvcc into the library of
 // ops/cuda_kernels.py and called through ctypes, which checks the tensors,
@@ -69,26 +109,84 @@
 
 namespace {
 
-constexpr int kBig = 1 << 30;    // background label; numel must stay below it
+constexpr int kBig = 1 << 30;    // bounds the voxel count; background label of the plain version
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSeg = 16;         // voxels of one row a statistics thread walks
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kStatSeg = 2048;   // voxels of one row a statistics warp takes at a time
 constexpr int kSlots = 512;      // labels a statistics block keeps in shared memory
+constexpr int kScanItems = 16;   // rows' counts a thread of the scan takes
+constexpr int kScanTile = kThreads * kScanItems;  // rows a block of the scan takes
 
-enum Step : int { kMergeFace, kMergeFull, kCompress, kRelabel };
+// Position of the highest set bit; -1 for 0.
+__device__ __forceinline__ int top_bit(unsigned v) { return 31 - __clz(v); }
 
+__device__ __forceinline__ int warp_max_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kAll, v, d);
+    if (lane >= d) v = max(v, o);
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(kAll, v, d);
+    if (lane >= d) v += o;
+  }
+  return v;
+}
+
+// The last zero bit strictly before each lane's word, as a position in the
+// row (-1: none), given the last zero before the step (carry) and each
+// word's bits; carry moves to the step's last zero.
+__device__ __forceinline__ int zero_before(unsigned bits, int w, int& carry) {
+  const int own = ~bits ? 32 * w + top_bit(~bits) : -1;
+  const int inc = max(warp_max_scan(own), carry);
+  int ex = __shfl_up_sync(kAll, inc, 1);
+  if ((threadIdx.x & 31) == 0) ex = carry;
+  carry = __shfl_sync(kAll, inc, 31);
+  return ex;
+}
+
+// Start of the run that holds bit `bit` of word w (set), given the last
+// zero before the word.
+__device__ __forceinline__ int run_start(unsigned bits, int w, int bit, int before) {
+  const unsigned m = ~bits & ((1u << bit) - 1u);
+  return (m ? 32 * w + top_bit(m) : before) + 1;
+}
+
+// Root of i's set: parents until an entry points at itself or is negative
+// (a root that rank_kernel has numbered already).  The reads go through
+// L1: a stale parent is an older one, still an ancestor, and unite's
+// atomicMin returns the true value.
 __device__ __forceinline__ int find_root(const int* L, int i) {
-  int p = __ldcg(L + i);
-  while (p != i) {
+  int p = L[i];
+  while (p >= 0 && p != i) {
     i = p;
-    p = __ldcg(L + i);
+    p = L[i];
   }
   return i;
 }
 
-__device__ void unite(int* L, int a, int b) {
-  a = find_root(L, a);
-  b = find_root(L, b);
+// find_root, then i's entry points at the root, so that later finds from i
+// take one hop.  A plain store is safe: i is not a root, and a non-root
+// never becomes one again; a union that raced on i's entry retries from the
+// value its atomicMin returned.
+__device__ __forceinline__ int find_compress(int* L, int i) {
+  const int r = find_root(L, i);
+  if (r != i) L[i] = r;
+  return r;
+}
+
+__device__ __forceinline__ void unite(int* L, int a, int b) {
+  if (L[a] == L[b]) return;  // one parent: one set
+  a = find_compress(L, a);
+  b = find_compress(L, b);
   while (a != b) {
     if (a > b) {
       const int t = a;
@@ -104,78 +202,310 @@ __device__ void unite(int* L, int a, int b) {
   }
 }
 
-// L[i] = first voxel of i's run along z for foreground i, kBig otherwise.
+// Non-zero bytes of x as bits 0..3.
+__device__ __forceinline__ unsigned nonzero_nibble(unsigned x) {
+  const unsigned high = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  return ((high >> 7) * 0x01020408u) >> 24;
+}
+
+// Non-zero bytes of a 16-byte vector as bits 0..15.
+__device__ __forceinline__ unsigned nonzero_bits(uint4 v) {
+  return nonzero_nibble(v.x) | nonzero_nibble(v.y) << 4 | nonzero_nibble(v.z) << 8 | nonzero_nibble(v.w) << 12;
+}
+
+// Pass 1: the row's bits into words (row * W + w), L[s] = s at each run
+// start s.  A lane takes 16 voxels a step from the one or two aligned
+// 16-byte vectors that hold them (the second, read by the next lane too,
+// comes from L1), so every row is read with vector loads, aligned or not.
 __global__ void __launch_bounds__(kThreads)
-runs_kernel(const uint8_t* __restrict__ mask, int64_t rows, int Z, int* __restrict__ L) {
+runs_kernel(const uint8_t* __restrict__ mask, int rows, int Z, int W, unsigned* __restrict__ words,
+            int* __restrict__ L, unsigned long long* __restrict__ tiles) {
   const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  // the scan's tile counter and states
+  if (threadIdx.x == 0 && blockIdx.x <= (rows - 1) / kScanTile) tiles[blockIdx.x + 1] = 0;
+  if (row == 0 && lane == 0) tiles[0] = 0;
   if (row >= rows) return;  // uniform over the warp
-  const int base = static_cast<int>(row * Z);
-  const unsigned upto = lane == 31 ? 0xffffffffu : (2u << lane) - 1u;  // lanes 0..lane
-  int carry = -1;  // start of the run that reaches the previous step's last voxel
-  for (int z0 = 0; z0 < Z; z0 += 32) {
-    const int z = z0 + lane;
-    const bool fg = z < Z && mask[base + z] != 0;
-    const unsigned bits = __ballot_sync(0xffffffffu, fg);
-    const unsigned gaps = ~bits & upto;
-    const int start = gaps ? z0 + 32 - __clz(gaps) : (carry >= 0 ? carry : z0);
-    if (z < Z) L[base + z] = fg ? base + start : kBig;
-    const int last = __shfl_sync(0xffffffffu, start, 31);
-    carry = (bits >> 31) ? last : -1;
+  const int base = row * Z;
+  const uintptr_t end = reinterpret_cast<uintptr_t>(mask + static_cast<int64_t>(rows) * Z);
+  unsigned carry = 0;  // the voxel before the step is set
+  for (int z0 = 0; z0 < Z; z0 += 512) {
+    const int z = z0 + 16 * lane;
+    unsigned h = 0;  // bits of voxels z .. z + 15
+    if (z < Z) {
+      const uintptr_t at = reinterpret_cast<uintptr_t>(mask + base + z);
+      const int off = static_cast<int>(at & 15);
+      const uint4* q = reinterpret_cast<const uint4*>(at - off);
+      h = nonzero_bits(q[0]) >> off;
+      if (off && at - off + 16 < end) h |= nonzero_bits(q[1]) << (16 - off);
+      if (Z - z < 16) h &= (1u << (Z - z)) - 1u;
+      h &= 0xffffu;
+    }
+    const unsigned hi = __shfl_down_sync(kAll, h, 1);
+    const int w = (z0 >> 5) + (lane >> 1);
+    if (!(lane & 1) && w < W) words[row * W + w] = h | hi << 16;
+    unsigned prev = __shfl_up_sync(kAll, h, 1) >> 15;
+    if (lane == 0) prev = carry;
+    for (unsigned s = h & ~(h << 1 | prev); s; s &= s - 1) {
+      const int i = base + z + __ffs(s) - 1;
+      L[i] = i;
+    }
+    carry = __shfl_sync(kAll, h, 31) >> 15;
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-voxel_kernel(const uint8_t* __restrict__ mask, int X, int Y, int Z, int* L,
-             uint8_t* __restrict__ roots, const int* __restrict__ rank) {
+// The last zero of a row's words strictly before bit `bit` of word w
+// (whose bits are `bits`), as a position in the row; -1: none.  Walks back
+// over the words before w while they are full.
+__device__ __forceinline__ int zero_below(const unsigned* __restrict__ row, unsigned bits, int w, int bit) {
+  unsigned m = ~bits & ((1u << bit) - 1u);
+  while (m == 0 && w > 0) m = ~row[--w];
+  return m ? 32 * w + top_bit(m) : -1;
+}
+
+// Pass 2: a thread per word of a row A against the same word of each
+// neighbour row B of lower flat index.  (At least 4 blocks an SM: without
+// it ptxas holds this kernel to 32 registers and spills.)
+template <bool kFull>
+__global__ void __launch_bounds__(kThreads, 4)
+merge_kernel(const unsigned* __restrict__ words, int X, int Y, int Z, int W, int* L) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t >= static_cast<int64_t>(X) * Y * Z) return;
-  const int i = static_cast<int>(t);
-  if constexpr (S == kCompress) {
-    const int p = L[i];
-    if (p == kBig) {
-      roots[i] = 0;
-      return;
-    }
-    const int r = find_root(L, p);
-    L[i] = r;
-    roots[i] = r == i;
-  } else if constexpr (S == kRelabel) {
-    const int r = L[i];
-    L[i] = r == kBig ? 0 : rank[r];
-  } else {
-    if (!mask[i]) return;
-    const int z = i % Z;
-    const int xy = i / Z;
-    const int y = xy % Y;
-    const int x = xy / Y;
-    const int YZ = Y * Z;
-    const bool zprev = z > 0 && mask[i - 1];
-    if constexpr (S == kMergeFace) {
-      // a neighbour whose own z - 1 is set was joined through voxel i - 1
-      if (y > 0 && mask[i - Z] && !(zprev && mask[i - Z - 1])) unite(L, i, i - Z);
-      if (x > 0 && mask[i - YZ] && !(zprev && mask[i - YZ - 1])) unite(L, i, i - YZ);
+  if (t >= static_cast<int64_t>(X) * Y * W) return;
+  const int row = static_cast<int>(t / W);
+  const int w = static_cast<int>(t - static_cast<int64_t>(row) * W);
+  const unsigned* A = words + static_cast<int64_t>(row) * W;
+  const unsigned a = A[w];
+  if (!a) return;
+  const unsigned a_prev = w ? A[w - 1] >> 31 : 0u;  // A at the voxel before the word
+  const int y = row % Y;
+  const int x = row / Y;
+#pragma unroll 1
+  for (int c = 0; c < (kFull ? 4 : 2); ++c) {
+    const int dx = c == 0 ? 0 : -1;
+    const int dy = c == 0 ? -1 : (c == 1 ? 0 : (c == 2 ? -1 : 1));
+    if (x + dx < 0 || y + dy < 0 || y + dy >= Y) continue;
+    const int nrow = row + dx * Y + dy;
+    const unsigned* B = words + static_cast<int64_t>(nrow) * W;
+    const unsigned b = B[w];
+    const unsigned b_before = w ? B[w - 1] : 0u;
+    const unsigned b_prev = b_before >> 31;  // B at the voxel before the word
+    unsigned d, d_prev, starts_next = 0;
+    if (kFull) {
+      const unsigned b_next = w + 1 < W ? B[w + 1] & 1u : 0u;  // B at the voxel after the word
+      d = a & (b | b << 1 | b_prev | b >> 1 | b_next << 31);
+      d_prev = a_prev & (b_before >> 30 | b_prev | b) & 1u;
+      starts_next = d & ~b & (b >> 1 | b_next << 31);  // a B run starts at the next voxel
     } else {
-      // columns (x, y - 1) and (x - 1, y - 1..y + 1), at dz = -1..1; with
-      // i - 1 set, i - 1 joined dz <= 0 already, so only dz = +1 is left.
-      // Within a column, a voxel right after a set one is in its run.
-      const int dz0 = zprev ? 1 : -1;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int dy = c == 0 ? -1 : c - 2;
-        const int dx = c == 0 ? 0 : -1;
-        if ((dx && x == 0) || y + dy < 0 || y + dy >= Y) continue;
-        const int col = i + dx * YZ + dy * Z;
-        bool before = false;
-        for (int dz = dz0; dz <= 1; ++dz) {
-          if (z + dz < 0 || z + dz >= Z) continue;
-          const bool fg = mask[col + dz] != 0;
-          if (fg && !before) unite(L, i, col + dz);
-          before = fg;
-        }
-      }
+      d = a & b;
+      d_prev = a_prev & b_prev;
     }
+    const unsigned firsts = d & ~(d << 1 | d_prev);
+    for (unsigned e = firsts | starts_next; e; e &= e - 1) {
+      const int bit = __ffs(e) - 1;
+      const int sa = row * Z + zero_below(A, a, w, bit) + 1;
+      // the first voxel of a run of D: the B run at p - 1 or p; where B
+      // holds neither, the B run that starts at p + 1 is taken below
+      const unsigned b_left = bit ? b >> (bit - 1) & 1u : b_prev;
+      if ((firsts >> bit & 1u) && (b_left | (b >> bit & 1u)))
+        unite(L, sa, nrow * Z + zero_below(B, b, w, bit) + 1);
+      if (kFull && (starts_next >> bit & 1u)) unite(L, sa, nrow * Z + 32 * w + bit + 1);
+    }
+  }
+}
+
+// Pass 3: run starts to their roots; the row's roots numbered -1, -2, ...
+// in raster order; their count in offsets[row].
+__global__ void __launch_bounds__(kThreads)
+rank_kernel(const unsigned* __restrict__ words, int rows, int Z, int W, int* L, int* __restrict__ offsets) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int base = row * Z;
+  int total = 0;
+  unsigned top = 0;
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    const unsigned a = w < W ? words[row * W + w] : 0u;
+    unsigned prev = __shfl_up_sync(kAll, a, 1) >> 31;
+    if (lane == 0) prev = top;
+    const unsigned starts = a & ~(a << 1 | prev);
+    top = __shfl_sync(kAll, a, 31) >> 31;
+    if (!__any_sync(kAll, starts)) continue;
+    unsigned roots = 0;
+    for (unsigned s = starts; s; s &= s - 1) {
+      const int bit = __ffs(s) - 1;
+      const int i = base + 32 * w + bit;
+      const int p = L[i];
+      if (p == i)
+        roots |= 1u << bit;
+      else
+        L[i] = find_root(L, p);
+    }
+    const int c = __popc(roots);
+    const int inc = warp_sum_scan(c);
+    int number = total + inc - c;
+    for (unsigned r = roots; r; r &= r - 1) L[base + 32 * w + __ffs(r) - 1] = -++number;
+    total += __shfl_sync(kAll, inc, 31);
+  }
+  if (lane == 0) offsets[row] = total;
+}
+
+constexpr unsigned long long kAggregate = 1ull << 32;  // a tile's own count is published
+constexpr unsigned long long kInclusive = 2ull << 32;  // and the count up to its end
+
+// The count of the tiles before `tile`, by decoupled look-back (Merrill &
+// Garland 2016): publish this tile's aggregate, add up the predecessors'
+// back to one that has published its inclusive count, publish this tile's.
+// A tile waits only on tiles whose blocks started before it.
+__device__ int tile_prefix(unsigned long long* tiles, int tile, int aggregate) {
+  volatile unsigned long long* state = tiles + 1;
+  if (tile == 0) {
+    state[0] = kInclusive | static_cast<unsigned>(aggregate);
+    return 0;
+  }
+  state[tile] = kAggregate | static_cast<unsigned>(aggregate);
+  int prefix = 0;
+  for (int k = tile - 1;;) {
+    const unsigned long long v = state[k];
+    if (v < kAggregate) continue;  // not published yet
+    prefix += static_cast<int>(v & 0xffffffffu);
+    if (v >= kInclusive) break;
+    --k;
+  }
+  state[tile] = kInclusive | static_cast<unsigned>(prefix + aggregate);
+  return prefix;
+}
+
+// Pass 3b: offsets[0..rows) from the rows' root counts to the roots of the
+// rows before each row, in place, and offsets[rows] = n.  A block takes a
+// tile of kScanTile rows in the order the blocks start (tiles[0] counts
+// them): coalesced loads into shared memory, kScanItems consecutive rows a
+// thread, coalesced stores.
+__global__ void __launch_bounds__(kThreads)
+scan_kernel(int* __restrict__ offsets, int rows, unsigned long long* tiles) {
+  __shared__ int s_rows[kScanTile];
+  __shared__ int s_tile, s_prefix, s_warp[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = static_cast<int>(atomicAdd(tiles, 1ull));
+  __syncthreads();
+  const int tile = s_tile;
+  const int first = tile * kScanTile;
+  for (int k = threadIdx.x; k < kScanTile; k += kThreads) s_rows[k] = first + k < rows ? offsets[first + k] : 0;
+  __syncthreads();
+  int* mine = s_rows + threadIdx.x * kScanItems;
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) sum += mine[k];
+  const int inc = warp_sum_scan(sum);
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int aggregate = 0;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const int t = s_warp[k];
+      s_warp[k] = aggregate;
+      aggregate += t;
+    }
+    s_prefix = tile_prefix(tiles, tile, aggregate);
+  }
+  __syncthreads();
+  int run = s_prefix + s_warp[warp] + inc - sum;
+#pragma unroll
+  for (int k = 0; k < kScanItems; ++k) {
+    const int c = mine[k];
+    mine[k] = run;
+    run += c;
+  }
+  if (threadIdx.x == kThreads - 1 && first + kScanTile >= rows) offsets[rows] = run;
+  __syncthreads();
+  for (int k = threadIdx.x; k < kScanTile && first + k < rows; k += kThreads) offsets[first + k] = s_rows[k];
+}
+
+// The rank of run start s (flat): its root's entry is -(number in the
+// root's row) until that row's label pass writes the rank itself there.
+__device__ __forceinline__ int rank_of(const int* L, const int* __restrict__ offsets, int s, int Z) {
+  int v = L[s];
+  if (v >= 0) {  // s is not a root: v is
+    s = v;
+    v = L[s];
+    if (v > 0) return v;
+  }
+  return offsets[s / Z] - v;
+}
+
+// Pass 4: labels[i] for every voxel, once, in place over L.  A step takes
+// 32 words (1024 voxels), 32 a lane, and stores them coalesced: with kVec
+// (Z a multiple of 4 and L 16-byte aligned) lane l takes 4 voxels at
+// z0 + 128 j + 4 l for j = 0..7, 8 stores of 512 B; otherwise the voxels
+// z0 + 32 i + l for i = 0..31, 32 stores of 128 B.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+label_kernel(const unsigned* __restrict__ words, int rows, int Z, int W, int* L,
+             const int* __restrict__ offsets) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int base = row * Z;
+  int zero = -1;      // last zero before the step
+  int open_rank = 0;  // rank of the run open at the step's start
+  int lab[32];
+  // the lane's i-th voxel of the step, as (word of the step, bit)
+  const auto src_of = [&](int i) { return kVec ? 4 * (i >> 2) + (lane >> 3) : i; };
+  const auto bit_of = [&](int i) { return kVec ? 4 * (lane & 7) + (i & 3) : lane; };
+  const auto store = [&](int z0) {
+    if (kVec) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int z = z0 + 128 * j + 4 * lane;
+        if (z < Z)
+          *reinterpret_cast<int4*>(L + base + z) =
+              make_int4(lab[4 * j], lab[4 * j + 1], lab[4 * j + 2], lab[4 * j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (z0 + 32 * i + lane < Z) L[base + z0 + 32 * i + lane] = lab[i];
+    }
+  };
+  for (int w0 = 0; w0 < W; w0 += 32) {
+    const int w = w0 + lane;
+    const unsigned a = w < W ? words[row * W + w] : 0u;
+    const int z0 = 32 * w0;
+    if (!__any_sync(kAll, a)) {  // background throughout
+      zero = z0 + 32 * 32 - 1;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) lab[i] = 0;
+      store(z0);
+      continue;
+    }
+    const int before = zero_before(a, w, zero);
+    int last_start = -2, last_rank = 0;
+    unsigned bits = 0;
+    int src_before = 0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int src = src_of(i);
+      if (!kVec || (i & 3) == 0) {  // a new word
+        bits = __shfl_sync(kAll, a, src);
+        src_before = __shfl_sync(kAll, before, src);
+      }
+      const int bit = bit_of(i);
+      int v = 0;
+      if (bits >> bit & 1u) {
+        const int start = run_start(bits, w0 + src, bit, src_before);
+        if (start != last_start) {
+          last_start = start;
+          last_rank = start < z0 ? open_rank : rank_of(L, offsets, base + start, Z);
+        }
+        v = last_rank;
+      }
+      lab[i] = v;
+    }
+    __syncwarp();  // the step's lookups before its stores
+    open_rank = __shfl_sync(kAll, lab[31], 31);  // the step's last voxel, either way
+    store(z0);
   }
 }
 
@@ -195,16 +525,16 @@ __device__ __forceinline__ void add_run(int* mn, int* mx, unsigned long long* cn
   atomicAdd(sum + 3 * l + 2, static_cast<unsigned long long>(za + zb) * c / 2);
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
+// kVec: the labels are 16-byte aligned and Z a multiple of 4, and a lane
+// takes 4 labels a step by one int4 load; otherwise one label, a step of
+// 32 coalesced 128 B.  (At least 4 blocks an SM: without it ptxas holds the
+// kShared, kVec form to 32 registers and spills.)
+template <bool kShared, bool kVec>
+__global__ void __launch_bounds__(kThreads, 4)
 stats_kernel(const int* __restrict__ labels, int X, int Y, int Z, int rows, int* mins, int* maxs,
              unsigned long long* count, unsigned long long* sums) {
   __shared__ int s_min[kShared ? 3 * kSlots : 1], s_max[kShared ? 3 * kSlots : 1];
   __shared__ unsigned long long s_cnt[kShared ? kSlots : 1], s_sum[kShared ? 3 * kSlots : 1];
-  int* mn = mins;
-  int* mx = maxs;
-  unsigned long long* cnt = count;
-  unsigned long long* sum = sums;
   if constexpr (kShared) {
     for (int s = threadIdx.x; s < 3 * rows; s += kThreads) {
       s_min[s] = kBig;
@@ -213,36 +543,93 @@ stats_kernel(const int* __restrict__ labels, int X, int Y, int Z, int rows, int*
     }
     for (int s = threadIdx.x; s < rows; s += kThreads) s_cnt[s] = 0;
     __syncthreads();
-    mn = s_min;
-    mx = s_max;
-    cnt = s_cnt;
-    sum = s_sum;
   }
-  const int segs = (Z + kSeg - 1) / kSeg;
-  const int64_t total = static_cast<int64_t>(X) * Y * segs;
-  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; t < total;
-       t += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t row = t / segs;
-    const int z0 = static_cast<int>(t - row * segs) * kSeg;
-    const int z1 = min(Z, z0 + kSeg);
-    const int y = static_cast<int>(row % Y);
-    const int x = static_cast<int>(row / Y);
-    const int* p = labels + row * Z;
-    int cur = 0, first = z0;
-    for (int z = z0; z < z1; ++z) {
-      const int l = p[z];
-      if (l != cur) {
-        if (cur > 0 && cur < rows) add_run(mn, mx, cnt, sum, cur, x, y, first, z - 1);
-        cur = l;
-        first = z;
+  // one run's update, into the block's rows or the global ones
+  const auto add = [&](int l, int x, int y, int za, int zb) {
+    if constexpr (kShared)
+      add_run(s_min, s_max, s_cnt, s_sum, l, x, y, za, zb);
+    else
+      add_run(mins, maxs, count, sums, l, x, y, za, zb);
+  };
+  const int lane = threadIdx.x & 31;
+  constexpr int kPer = kVec ? 4 : 1;  // labels a lane takes a step
+  constexpr int kStep = 32 * kPer;
+  constexpr int kBatch = kVec ? 2 : 4;  // steps whose loads are in flight together
+  const int segs = (Z + kStatSeg - 1) / kStatSeg;
+  const int64_t items = static_cast<int64_t>(X) * Y * segs;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5); t < items;
+       t += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int r = static_cast<int>(t / segs);
+    const int zs = static_cast<int>(t - static_cast<int64_t>(r) * segs) * kStatSeg;
+    const int ze = min(Z, zs + kStatSeg);
+    const int y = r % Y;
+    const int x = r / Y;
+    const int* p = labels + static_cast<int64_t>(r) * Z;
+    int open = 0, open_start = zs;  // the run open at the step's start
+    // one step of kStep labels from z0, the lane's at z0 + kPer * lane
+    const auto step = [&](int z0, const int (&v)[kPer]) {
+      const int z = z0 + kPer * lane;
+      bool same = true, zero = true;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        same &= v[k] == open;
+        zero &= v[k] == 0;
       }
+      if (__all_sync(kAll, same)) return;  // inside the open run
+      if (__all_sync(kAll, zero)) {        // background closes it
+        if (lane == 0 && open > 0 && open < rows) add(open, x, y, open_start, z0 - 1);
+        open = 0;
+        return;
+      }
+      int prev = __shfl_up_sync(kAll, v[kPer - 1], 1);
+      if (lane == 0) {
+        prev = open;
+        if (v[0] != open && open > 0 && open < rows) add(open, x, y, open_start, z0 - 1);
+      }
+      const int next = __shfl_down_sync(kAll, v[0], 1);
+      int last = -1;  // the lane's last run start
+#pragma unroll
+      for (int k = 0; k < kPer; ++k)
+        if (v[k] != (k ? v[k - 1] : prev)) last = z + k;
+      // the start of the run that holds the lane's voxel before its first
+      int start = __shfl_up_sync(kAll, warp_max_scan(last), 1);
+      start = max(lane == 0 ? -1 : start, open_start);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (v[k] != (k ? v[k - 1] : prev)) start = z + k;
+        const bool ends = k < kPer - 1 ? v[k + 1] != v[k] : (lane < 31 && next != v[k]);
+        if (ends && v[k] > 0 && v[k] < rows) add(v[k], x, y, start, z + k);
+      }
+      open = __shfl_sync(kAll, v[kPer - 1], 31);
+      open_start = __shfl_sync(kAll, start, 31);
+    };
+    // kBatch steps' loads are issued before the first of them is walked
+    for (int z0 = zs; z0 < ze; z0 += kBatch * kStep) {
+      int v[kBatch][kPer];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int z = z0 + j * kStep + kPer * lane;
+        if constexpr (kVec) {
+          int4 q = make_int4(0, 0, 0, 0);
+          if (z < ze) q = __ldcs(reinterpret_cast<const int4*>(p + z));
+          v[j][0] = q.x;
+          v[j][1] = q.y;
+          v[j][2] = q.z;
+          v[j][3] = q.w;
+        } else {
+          v[j][0] = z < ze ? __ldcs(p + z) : 0;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (z0 + j * kStep < ze) step(z0 + j * kStep, v[j]);
     }
-    if (cur > 0 && cur < rows) add_run(mn, mx, cnt, sum, cur, x, y, first, z1 - 1);
+    if (lane == 0 && open > 0 && open < rows) add(open, x, y, open_start, ze - 1);
   }
   if constexpr (kShared) {
     __syncthreads();
     for (int s = threadIdx.x; s < rows; s += kThreads) {
-      if (s_cnt[s] == 0) continue;
+      if (s_cnt[s] == 0) continue;  // not touched by this block
       atomicAdd(count + s, s_cnt[s]);
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
@@ -258,11 +645,11 @@ bool dims_ok(int X, int Y, int Z) {
   return X > 0 && Y > 0 && Z > 0 && static_cast<int64_t>(X) * Y * Z < kBig;
 }
 
-unsigned int blocks_for(int64_t threads) {
-  return static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
-}
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <bool kShared>
+unsigned int warp_blocks(int64_t rows) { return static_cast<unsigned int>((rows + kWarps - 1) / kWarps); }
+
+template <bool kShared, bool kVec>
 cudaError_t launch_stats(const int* labels, int X, int Y, int Z, int rows, int* mins, int* maxs,
                          unsigned long long* count, unsigned long long* sums,
                          cudaStream_t stream) {
@@ -270,50 +657,62 @@ cudaError_t launch_stats(const int* labels, int X, int Y, int Z, int rows, int* 
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stats_kernel<kShared>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stats_kernel<kShared, kVec>, kThreads, 0);
   if (err != cudaSuccess) return err;
-  const int64_t segs = (Z + kSeg - 1) / kSeg;
-  const int64_t needed = blocks_for(static_cast<int64_t>(X) * Y * segs);
+  const int64_t segs = (Z + kStatSeg - 1) / kStatSeg;
+  const int64_t needed = warp_blocks(static_cast<int64_t>(X) * Y * segs);
   const int64_t resident = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
   const unsigned int blocks = static_cast<unsigned int>(needed < resident ? needed : resident);
-  stats_kernel<kShared><<<blocks, kThreads, 0, stream>>>(labels, X, Y, Z, rows, mins, maxs, count,
-                                                         sums);
+  stats_kernel<kShared, kVec><<<blocks, kThreads, 0, stream>>>(labels, X, Y, Z, rows, mins, maxs, count,
+                                                               sums);
   return cudaGetLastError();
+}
+
+template <bool kShared>
+cudaError_t launch_stats(const int* labels, int X, int Y, int Z, int rows, int* mins, int* maxs,
+                         unsigned long long* count, unsigned long long* sums, cudaStream_t stream) {
+  return Z % 4 == 0 && aligned16(labels)
+             ? launch_stats<kShared, true>(labels, X, Y, Z, rows, mins, maxs, count, sums, stream)
+             : launch_stats<kShared, false>(labels, X, Y, Z, rows, mins, maxs, count, sums, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The background label, which bounds the voxel count; the wrapper checks it.
+// The bound of the voxel count; the wrapper checks it.
 int pbr3d_components_big() { return kBig; }
 
-// Launches the run, merge and compress kernels on `stream` without
-// synchronising and returns cudaGetLastError().  mask (X, Y, Z) uint8,
-// non-zero = foreground, X * Y * Z < kBig; full != 0 for 26-connectivity.
-// Leaves L (X, Y, Z) int32 = the root (smallest flat index) of each
-// foreground voxel's component, kBig on the background, and roots (X, Y, Z)
-// uint8 = (L[i] == i).
-int pbr3d_components(const uint8_t* mask, int X, int Y, int Z, int full, int* L, uint8_t* roots,
-                     cudaStream_t stream) {
-  if (!dims_ok(X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t n = static_cast<int64_t>(X) * Y * Z;
-  runs_kernel<<<blocks_for(static_cast<int64_t>(X) * Y * 32), kThreads, 0, stream>>>(
-      mask, static_cast<int64_t>(X) * Y, Z, L);
-  if (full)
-    voxel_kernel<kMergeFull><<<blocks_for(n), kThreads, 0, stream>>>(mask, X, Y, Z, L, roots, nullptr);
-  else
-    voxel_kernel<kMergeFace><<<blocks_for(n), kThreads, 0, stream>>>(mask, X, Y, Z, L, roots, nullptr);
-  voxel_kernel<kCompress><<<blocks_for(n), kThreads, 0, stream>>>(mask, X, Y, Z, L, roots, nullptr);
-  return static_cast<int>(cudaGetLastError());
-}
+// Rows a block of the scan takes; the wrapper sizes the tile states by it.
+int pbr3d_components_rows_per_tile() { return kScanTile; }
 
-// labels[i] = rank[labels[i]], 0 where labels[i] == kBig, in place over n
-// voxels; rank is the inclusive count of roots in flat order.
-int pbr3d_components_relabel(int* labels, const int* rank, int64_t n, cudaStream_t stream) {
-  if (n <= 0 || n >= kBig) return static_cast<int>(cudaErrorInvalidValue);
-  voxel_kernel<kRelabel><<<blocks_for(n), kThreads, 0, stream>>>(
-      nullptr, 1, 1, static_cast<int>(n), labels, nullptr, rank);
+// Labels the components of mask (X, Y, Z) uint8 (non-zero = foreground,
+// X * Y * Z < kBig; full != 0 for 26-connectivity) into L (X, Y, Z) int32:
+// 0 on the background, 1..n in scipy's order on the foreground.  Scratch:
+// words (X * Y, ceil(Z / 32)) int32, the rows' bits; tiles
+// (ceil(X * Y / rows per tile) + 1) int64.  Leaves offsets (X * Y + 1)
+// int32, the roots of the rows before each row, with offsets[X * Y] = n.
+// Launches the run, merge, rank, scan and label passes on `stream` without
+// synchronising and returns cudaGetLastError().
+int pbr3d_components(const uint8_t* mask, int X, int Y, int Z, int full, unsigned* words, int* L,
+                     int* offsets, unsigned long long* tiles, cudaStream_t stream) {
+  if (!dims_ok(X, Y, Z)) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = X * Y;
+  const int W = (Z + 31) / 32;
+  const unsigned int blocks = warp_blocks(rows);
+  runs_kernel<<<blocks, kThreads, 0, stream>>>(mask, rows, Z, W, words, L, tiles);
+  const unsigned int word_blocks =
+      static_cast<unsigned int>((static_cast<int64_t>(rows) * W + kThreads - 1) / kThreads);
+  if (full)
+    merge_kernel<true><<<word_blocks, kThreads, 0, stream>>>(words, X, Y, Z, W, L);
+  else
+    merge_kernel<false><<<word_blocks, kThreads, 0, stream>>>(words, X, Y, Z, W, L);
+  rank_kernel<<<blocks, kThreads, 0, stream>>>(words, rows, Z, W, L, offsets);
+  scan_kernel<<<(rows + kScanTile - 1) / kScanTile, kThreads, 0, stream>>>(offsets, rows, tiles);
+  if (Z % 4 == 0 && aligned16(L))
+    label_kernel<true><<<blocks, kThreads, 0, stream>>>(words, rows, Z, W, L, offsets);
+  else
+    label_kernel<false><<<blocks, kThreads, 0, stream>>>(words, rows, Z, W, L, offsets);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -124,15 +124,14 @@ def load_extension() -> ctypes.CDLL:
             tuple(map(knn_capacity, (1, 3, 20, KNN_MAX_K))) + (0,))
     if got != want:
         raise RuntimeError(f"{lib_path.name}: knn's step, blocks and capacities {got}, expected {want}")
-    lib.pbr3d_components.argtypes = [_P, _I32, _I32, _I32, _I32, _P, _P, _P]
+    lib.pbr3d_components.argtypes = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P]
     lib.pbr3d_components.restype = _I32
-    lib.pbr3d_components_relabel.argtypes = [_P, _P, _I64, _P]
-    lib.pbr3d_components_relabel.restype = _I32
     lib.pbr3d_component_stats.argtypes = [_P, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P]
     lib.pbr3d_component_stats.restype = _I32
-    if lib.pbr3d_components_big() != COMPONENTS_BIG:
-        raise RuntimeError(f"{lib_path.name}: components' background label {lib.pbr3d_components_big()}, "
-                           f"expected {COMPONENTS_BIG}")
+    got = (lib.pbr3d_components_big(), lib.pbr3d_components_rows_per_tile())
+    if got != (COMPONENTS_BIG, COMPONENTS_ROWS_PER_TILE):
+        raise RuntimeError(f"{lib_path.name}: components' voxel bound and rows per tile {got}, "
+                           f"expected {(COMPONENTS_BIG, COMPONENTS_ROWS_PER_TILE)}")
     lib.build_log = log_path.read_text() if log_path.exists() else ""
     return lib
 
@@ -363,10 +362,13 @@ def knn_plain(A: torch.Tensor, B: torch.Tensor, k: int):
     return d2, _redirect_unreachable(d2, idx)
 
 
-#: The components kernels' background label (``pbr3d/ops/components.py``'s
-#: ``_BIG``), which bounds a mask's voxel count; the library is checked
-#: against it.
+#: The plain labeller's background label (``pbr3d/ops/components.py``'s
+#: ``_BIG``), which bounds a mask's voxel count (the kernels' flat indices
+#: are int32); and the rows a block of the scan over the rows' root counts
+#: takes, by which the wrapper sizes the scan's tile states.  The library
+#: is checked against both.
 COMPONENTS_BIG = 1 << 30
+COMPONENTS_ROWS_PER_TILE = 4096
 
 
 def _check_volume(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
@@ -387,26 +389,30 @@ def components_kernel(mask: torch.Tensor, full: bool):
     (non-zero is foreground) under face (6) or, with ``full``, 26
     connectivity: (labels (X, Y, Z) int32, n), 0 on the background and 1..n
     in the raster order of each component's first voxel, as
-    ``scipy.ndimage.label`` numbers them.  Launches the run, merge and
-    compress kernels, ``torch.cumsum`` over the root flags, then the relabel
-    kernel, on the current stream; reading n back synchronises.  An empty
-    mask launches nothing."""
+    ``scipy.ndimage.label`` numbers them.  Launches the run, merge, rank,
+    scan (of the rows' root counts) and label kernels on the current
+    stream, which write every voxel of the labels once; reading n
+    back synchronises.  An empty mask launches nothing."""
     _check_volume(mask, "mask", torch.uint8)
-    labels = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
     if mask.numel() == 0:
-        return labels, 0
+        return torch.zeros(mask.shape, dtype=torch.int32, device=mask.device), 0
     lib = load_extension()
-    roots = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
-    with torch.cuda.device(mask.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _raise_on(lib.pbr3d_components(mask.data_ptr(), *mask.shape, int(bool(full)), labels.data_ptr(),
-                                       roots.data_ptr(), stream), "components launch")
-        rank = torch.cumsum(roots.view(-1), 0, dtype=torch.int32)
-        del roots
-        _raise_on(lib.pbr3d_components_relabel(labels.data_ptr(), rank.data_ptr(), labels.numel(), stream),
-                  "components relabel launch")
+    X, Y, Z = mask.shape
+    rows, dev = X * Y, mask.device
+    labels = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+    # one scratch allocation, in int32s: the scan's tile counter and tile
+    # states (int64 each), the row offsets and the rows' bits (ceil(Z / 32)
+    # words a row)
+    n_tiles = 2 * (-(-rows // COMPONENTS_ROWS_PER_TILE) + 1)
+    scratch = torch.empty((n_tiles + rows + 1 + rows * -(-Z // 32),), dtype=torch.int32, device=dev)
+    tiles = scratch.data_ptr()
+    offsets, words = tiles + 4 * n_tiles, tiles + 4 * (n_tiles + rows + 1)
+    with torch.cuda.device(dev):
+        _raise_on(lib.pbr3d_components(mask.data_ptr(), X, Y, Z, int(bool(full)), words, labels.data_ptr(),
+                                       offsets, tiles, torch.cuda.current_stream().cuda_stream),
+                  "components launch")
     components_kernel.launches += 1
-    return labels, int(rank[-1])
+    return labels, int(scratch[n_tiles + rows])
 
 
 components_kernel.launches = 0
