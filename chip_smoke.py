@@ -72,8 +72,12 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    against the committed golden grid, stage-3 whole IoU, mean part IoU), the
    nb4 cells and the artifacts are checked per monument.  It reports each
    call's wall, the ``[prof]`` phases, peak device memory, both carve routes'
-   times and peaks, and for (b) a second call under the profiler (the same
-   results; its device-busy share).
+   times and peaks, and for (b) a second call (the same results).
+
+   The study bench follows phase 7: ``bench_torch.bench`` at 256, two timed
+   passes and one under the profiler (the study's device-busy share), on the
+   same scenes (``bench.py``'s protocol, keys and gates).  Its JSON is logged; it must hold every key, a
+   stage-1 gate value for every monument and ``quality_ok``.
 
 8. the evaluation path, after the study.  Notebook 4: the three table
    bodies of ``pbr3d_torch.eval.intra`` over all five monuments on the
@@ -118,6 +122,7 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    matplotlib on the card).
 
 ``python3 chip_smoke.py study`` runs the build and phase 7 alone,
+``python3 chip_smoke.py bench`` the build and the study bench,
 ``python3 chip_smoke.py stage1`` the build and phase 9,
 ``python3 chip_smoke.py kernels`` the build and phase 2, ``python3
 chip_smoke.py eval`` the build and phase 8 on the committed artifacts; each
@@ -147,6 +152,8 @@ import numpy as np
 import scipy.ndimage
 import torch
 
+import bench_torch
+from bench_torch import device_profile, query_card, study_scenes
 from pbr3d_torch import config, pipeline
 from pbr3d_torch.camera.align import (
     _batch_iou, evaluate_camera_iou, mask_labels_selected, refine_cameras_batched,
@@ -178,7 +185,7 @@ from pbr3d_torch.ops.cuda_kernels import (
 )
 from pbr3d_torch.ops.point_table import build_point_table
 from pbr3d_torch.ops.rotate import rotate_y, rotate_y_binary_u8
-from pbr3d_torch.pipeline import ALIGN_PARTS, SceneMasks, run_all_body, run_stage2_views, run_stage3_body
+from pbr3d_torch.pipeline import ALIGN_PARTS, run_all_body, run_stage2_views, run_stage3_body
 from pbr3d_torch.segmentation import close_holes, find_symmetry_axis, remove_small_regions_2d
 from pbr3d_torch.utils import profiling
 
@@ -309,14 +316,13 @@ NB4_TOTAL_ATOL = 0.01
 #: ``enforce_no_regression``'s own tolerances (parts 1e-6).
 NB4_TOL = {"whole": 0.01, "minarets": 0.005}
 
-STUDY = REPO / "tests/fixtures/torch_port_study.npz"
-#: Phase 7's two configurations: what ``run_all_body`` is given, and the
-#: committed results of the JAX package at that resolution.
+STUDY = bench_torch.STUDY
+#: Phase 7's two configurations: what ``run_all_body`` is given (the study
+#: bench's ``CONFIGS``), and the committed results of the JAX package at that
+#: resolution.
 STUDY_RUNS = {
-    "golden": dict(results=REPO / "results_temp_golden", kw=dict(max_dim=None)),
-    "256": dict(results=REPO / "results_temp", kw=dict(
-        max_dim=256, stage2_kw=dict(generations=12, population=192, seed=0),
-        stage3_kw=dict(search_stride=8))),
+    "golden": dict(results=REPO / "results_temp_golden", kw=bench_torch.CONFIGS["golden"]),
+    "256": dict(results=REPO / "results_temp", kw=bench_torch.CONFIGS["256"]),
 }
 #: Bibi's final front IoU in the golden study may end this far below the
 #: serial stage 2's of phase 5 (another search schedule on the same view).
@@ -368,12 +374,6 @@ def check(ok: bool, what: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def query_card() -> str:
-    """The card's name and power limit, as ``nvidia-smi`` gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
 def load_wrapper(root: Path):
@@ -711,7 +711,7 @@ def components_pass_ms(vol: torch.Tensor, full: bool, reps: int = 10):
     lack some of the launches (late in the whole smoke one trace held a
     sixth of them)."""
     for _ in range(3):
-        by_name = _device_profile(lambda: [components_kernel(vol, full) for _ in range(reps)])[3]
+        by_name = device_profile(lambda: [components_kernel(vol, full) for _ in range(reps)])[3]
         out, seen = dict.fromkeys(COMPONENT_PASSES, 0.0), dict.fromkeys(COMPONENT_PASSES, 0)
         for name, (ms, n) in by_name.items():
             for step in COMPONENT_PASSES:
@@ -902,43 +902,11 @@ def phase_metrics(fx, grid: np.ndarray) -> int:
     check(np.allclose(fscore, fx["jax_fscore"], rtol=JAX_RTOL, atol=0), "F-score vs JAX")
     check(np.allclose(curve, fx["jax_f1_curve"], rtol=JAX_RTOL, atol=0), "F1 curve vs JAX")
 
-    wall, busy, top, _ = _device_profile(metrics)
+    wall, busy, top, _ = device_profile(metrics)
     mine = [(ms, k) for name, ms, k in top if "min_dist2" in name]
     log(f"metrics profiled (decode and points excluded): wall_s={wall:.4f} device_busy_s={busy:.4f} "
         f"min_dist2 device_ms={sum(ms for ms, _ in mine):.4f} over {sum(k for _, k in mine)} launches")
     return launches
-
-
-def _device_profile(fn):
-    """(wall s, device-busy s, top kernels [(name, ms, launches)], every
-    kernel's (ms, launches) by name) of ``fn()`` under ``torch.profiler``:
-    busy is the union of the kernels' intervals.  Only the device is traced
-    (a long multi-threaded run's host events are many and are not read
-    here)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the trace's own records, not ``prof.events()``: building the event tree
-    # of a study's ~1.5 M launches takes minutes, and only the device
-    # intervals are read here
-    kernels = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA]
-    busy, end = 0, -1
-    for a, b, _ in sorted(kernels):
-        busy += max(0, b - max(a, end))
-        end = max(end, b)
-    by_name: dict = {}
-    for a, b, name in kernels:
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (b - a) / 1e6, n + 1)
-    top = sorted(((k, *v) for k, v in by_name.items()), key=lambda r: -r[1])[:8]
-    return wall, busy / 1e9, top, by_name
 
 
 def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> dict:
@@ -1028,7 +996,7 @@ def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> dict:
     # both views, the artifacts, under the profiler.
     with tempfile.TemporaryDirectory() as tmp:
         out: dict = {}
-        wall, busy, top, _ = _device_profile(lambda: out.update(zip(
+        wall, busy, top, _ = device_profile(lambda: out.update(zip(
             ("cams", "ious"), run_stage2_views("Bibi", grid, views, tmp, device=device))))
         log(f"stage2 profiled body (both views, own generator): wall_s={wall:.3f} "
             f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
@@ -1196,7 +1164,7 @@ def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
 
     # the second run of the body, under the profiler
     second: dict = {}
-    wall, busy, top, _ = _device_profile(lambda: second.update(zip(("deforms", "grid"), body())))
+    wall, busy, top, _ = device_profile(lambda: second.update(zip(("deforms", "grid"), body())))
     log(f"stage3 body cold_s={cold:.3f} peak_mem_bytes={peak}; second run, profiled: "
         f"wall_s={wall:.3f} device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
     for name, ms, n in top:
@@ -1341,7 +1309,7 @@ def phase_stage1_api(fx, fxs, card: str, fused=None, device: str = "cuda") -> No
         log(f"stage1 api StageTimer {ln}")
     log(f"stage1 api StageTimer guided_s={timer.times['guided']:.3f} recolor_s={timer.times['recolor']:.3f} "
         f"(PR 8, host labels: 1.039 / 4.323 s after the study, 1.088 / 1.343 s alone)")
-    wall, busy, top, _ = _device_profile(lambda: carve_monument(masks, device=device))
+    wall, busy, top, _ = device_profile(lambda: carve_monument(masks, device=device))
     log(f"stage1 api profiled: wall_s={wall:.3f} device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
     for name, ms, n in top[:5]:
         log(f"stage1 api   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
@@ -1468,14 +1436,7 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
     Returns (results by monument, the scenes' masks)."""
     run = STUDY_RUNS[tag]
     monuments = list(config.MONUMENTS)
-    scenes = {}
-    for m in monuments:
-        planes = (fxs[f"{tag}_{m}_{k}"] for k in ("binary", "exterior", "semantic"))
-        # the planted front view serves stages 2 and 3 and, no monument's
-        # padded grid outgrowing its mask's larger side, as the notebook-4
-        # mask too
-        front = fxs[f"{tag}_{m}_front"]
-        scenes[m] = SceneMasks(MaskSet.from_labels(*planes), {"front": front, "drone": fxs[f"{tag}_{m}_drone"]}, front)
+    scenes = study_scenes(fxs, tag)
     ids = config.part_ids(ALIGN_PARTS)
     where = f"[{card}]"
 
@@ -1643,15 +1604,13 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
     lap("carve routes")
 
     # 7. the second call, at 256 only (the golden one would add a minute to
-    # the smoke): the same results, whatever ran beside what
+    # the smoke): the same results, whatever ran beside what.  The bench
+    # phase that follows profiles the same study.
     if tag != "256":
         return results, scenes
-    second: dict = {}
-    wall, busy, top, _ = _device_profile(lambda: second.update(study()))
-    log(f"study {tag} {where}: run_all second call, profiled: wall_s={wall:.3f} "
-        f"device_busy_s={busy:.4f} busy_share={busy / wall:.4f}")
-    for name, ms, n in top:
-        log(f"study {tag}   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
+    t0 = time.perf_counter()
+    second = study()
+    log(f"study {tag} {where}: run_all second call: wall_s={time.perf_counter() - t0:.3f}")
     for m, r in results.items():
         same = (second[m].deform_params == r.deform_params
                 and np.array_equal(second[m].grid_stage3, r.grid_stage3)
@@ -1661,6 +1620,28 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
     log(f"study {tag}: the second call's cameras, deforms and grids are the first call's")
     lap("the second call")
     return results, scenes
+
+
+def phase_bench(fxs, card: str, device: str = "cuda") -> dict:
+    """The study bench (``bench_torch.bench``) at 256: two passes and the
+    profiled one.  Its JSON holds every key, a stage-1 gate value for every
+    monument, and ``quality_ok``."""
+    t0 = time.perf_counter()
+    wrappers = (min_dist2_kernel, knn_kernel, components_kernel, component_stats_kernel)
+    before = [w.launches for w in wrappers]
+    out = bench_torch.bench(study_scenes(fxs, "256"), bench_torch.CONFIGS["256"], 2, device=device,
+                            golden_dir=bench_torch.GOLDEN_DIR, trace=True)
+    log(f"bench 256 [{card}]: " + json.dumps(out))
+    log("bench: hand-written kernel launches over its three passes and gates: " + json.dumps(
+        {w.__name__: w.launches - n for w, n in zip(wrappers, before)}))
+    check(list(out) == list(bench_torch.KEYS + bench_torch.TRACE_KEYS), f"bench: keys {list(out)}")
+    check(out["card"] == card, f"bench: card {out['card']!r}")
+    check(list(out["quality"]) == list(config.MONUMENTS)
+          and all(q["stage1_iou_vs_golden"] is not None for q in out["quality"].values()),
+          f"bench: quality {out['quality']}")
+    check(out["quality_ok"], f"bench: the quality gates failed: {out['quality']}")
+    log(f"phase bench: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def nb5_sparse_cloud(shell_xyz: np.ndarray) -> np.ndarray:
@@ -2016,7 +1997,7 @@ def phase_eval_nb5(ev: dict, card: str, grid: np.ndarray, model: np.ndarray, dev
 
     # 7. the main path once more, under the profiler
     with tempfile.TemporaryDirectory() as tmp:
-        wall2, busy, top, by_name = _device_profile(lambda: path(Path(tmp)))
+        wall2, busy, top, by_name = device_profile(lambda: path(Path(tmp)))
     log(f"nb5 [{card}]: main path profiled: wall_s={wall2:.3f} device_busy_s={busy:.4f} busy_share={busy / wall2:.4f}")
     for name, ms, n in top:
         log(f"nb5   kernel {ms:9.2f} ms  x{n:<6d} {name[:90]}")
@@ -2063,6 +2044,11 @@ def main() -> int:
         log(f"study alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
         return 0
 
+    if sys.argv[1:] == ["bench"]:
+        phase_bench(fxs, card)
+        log(f"bench alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
+        return 0
+
     if sys.argv[1:] == ["stage1"]:
         phase_stage1_api(np.load(FIXTURE), fxs, card)
         log(f"stage-1 API alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
@@ -2093,6 +2079,7 @@ def main() -> int:
     log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
     produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"]),
                 "256": phase_study(fxs, "256", card)}
+    phase_bench(fxs, card)
     launches9, crop9 = phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
     t8 = time.perf_counter()
     taj = phase_eval_nb4(fxs, ev, card, produced)

@@ -96,17 +96,21 @@ def load_mask_labels(
     return rgb_to_labels(load_mask_rgb(root_path, monument_name, view_name, max_dim))
 
 
+def voxel_grid_mask_shape(mask_hw, grid_shape) -> tuple[int, int]:
+    """(h, w) that :func:`resize_mask_to_voxel_grid` gives a mask of
+    ``mask_hw``: max(mask dims) == max(grid dims), ROUNDED dims."""
+    H, W = mask_hw[:2]
+    scale = max(grid_shape[:3]) / max(H, W)
+    return int(round(H * scale)), int(round(W * scale))
+
+
 def resize_mask_to_voxel_grid(mask_rgb: np.ndarray, grid_shape) -> np.ndarray:
-    """Resize so max(mask dims) == max(grid dims); nearest, ROUNDED dims
-    (the notebook-4 loader, eval_helpers_intra.py:31-54; stage 1 truncates)."""
+    """Resize to :func:`voxel_grid_mask_shape`; nearest (the notebook-4
+    loader, eval_helpers_intra.py:31-54; stage 1 truncates)."""
     import cv2
 
-    H, W = mask_rgb.shape[:2]
-    scale = max(grid_shape[:3]) / max(H, W)
-    return cv2.resize(
-        mask_rgb, (int(round(W * scale)), int(round(H * scale))),
-        interpolation=cv2.INTER_NEAREST,
-    )
+    h, w = voxel_grid_mask_shape(mask_rgb.shape, grid_shape)
+    return cv2.resize(mask_rgb, (w, h), interpolation=cv2.INTER_NEAREST)
 
 
 def load_mask_labels_for_grid(

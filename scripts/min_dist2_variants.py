@@ -122,7 +122,7 @@ def main() -> int:
 
             launch()
             torch.cuda.synchronize()
-            _, _, top, _ = cs._device_profile(lambda launch=launch: [launch() for _ in range(10)])
+            _, _, top, _ = cs.device_profile(lambda launch=launch: [launch() for _ in range(10)])
             alone = {("pack" if "pack" in k else "main"): ms / count for k, ms, count in top}
             rows[name] = {
                 **dict(zip(("threads", "queries", "unroll", "tile", "min_blocks"), VARIANTS[name])),

@@ -2,7 +2,7 @@
 pandas, tabulate, matplotlib, plotly, segment_anything and the JAX package
 unavailable (the card's machine has none of the first seven, and the port
 keeps its own copies of what it needs from ``pbr3d``), and build no kernel on
-import."""
+import; so does ``bench_torch.py``, the port's study bench."""
 
 import subprocess
 import sys
@@ -57,6 +57,7 @@ MODULES = [
     "pbr3d_torch.segmentation.sam",
     "pbr3d_torch.utils",
     "pbr3d_torch.utils.viz",
+    "bench_torch",
     "chip_smoke",
 ]
 BLOCKED = ("jax", "cv2", "pbr3d", "pandas", "tabulate", "matplotlib", "plotly", "segment_anything")
@@ -82,7 +83,8 @@ print("ok")
 
 def test_port_imports_without_jax_and_cv2():
     """Also without ``pbr3d``: no ``pbr3d.*`` module is loaded after every
-    port module, the six example twins and ``chip_smoke`` are imported."""
+    port module, the six example twins, ``chip_smoke`` and ``bench_torch``
+    are imported."""
     assert len(TWINS) == 6
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
