@@ -28,7 +28,18 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    (``COMPONENT_TIMED_PART``) and the occupancy beside their byte bounds,
    the plain versions and the host labeller and statistics (no PyTorch
    call labels components), and the unfused route's bbox labelling against
-   the whole grid's;
+   the whole grid's; then stage 2's kernels (``phase_stage2_kernels``):
+   ``lm_fit_kernel`` against ``lm_fit_plain`` on the card on both Bibi@512
+   views of the stage-2 fixture (one fit a launch, as the path calls it;
+   losses within ``LM_LOSS_RTOL`` of the plain fit's and at most the JAX
+   package's times (1 + ``LM_LOSS_RTOL``), live steps within the
+   ``LM_STEP_GAP_MIN`` rule of the plain fit's) and on the ten golden study
+   views in one launch, and ``splat_iou_kernel`` against ``splat_iou_plain``
+   on the fixture's 64-camera batches at the native plane, on hard cameras
+   and points, and on three views in ``_search``'s layout (padding, ``hw``),
+   within ``BATCH_IOU_ATOL`` with the unequal IoUs counted; both timed
+   against their plain versions beside their bounds (no PyTorch call
+   computes either: ``library_ms`` null);
 3. stage 1 at 512 (Bibi): ``global_carve`` bit-exact against the reference
    oracle, ``carve_monument_fused`` bit-exact against the JAX package's grid
    in ``tests/fixtures/torch_port_Bibi_512.npz``; cold and warm times, peak
@@ -46,7 +57,8 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    IoUs, the keypoint fit's loss, the final IoUs of a run on the JAX draws
    and of one on the port's own generator; the returned IoUs re-scored, the
    camera JSONs saved and read back; cold and warm wall time per view, peak
-   device memory, and the profiler's device-busy share and top kernels;
+   device memory, and the profiler's device-busy share and top kernels; the
+   stage-2 kernels' launches over the phase, both positive;
 6. stage 3 at 512 (Bibi): part-wise refinement on phase 3's grid under the
    JAX package's stage-2 front camera, against
    ``tests/fixtures/torch_port_Bibi_512_stage3.npz``: the point table, every
@@ -72,12 +84,15 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    against the committed golden grid, stage-3 whole IoU, mean part IoU), the
    nb4 cells and the artifacts are checked per monument.  It reports each
    call's wall, the ``[prof]`` phases, peak device memory, both carve routes'
-   times and peaks, and for (b) a second call (the same results).
+   times and peaks, and for (b) a second call (the same results).  Both
+   stage-2 kernels' launch counts are set to 0 before each first call and
+   must be positive after it.
 
    The study bench follows phase 7: ``bench_torch.bench`` at 256, two timed
    passes and one under the profiler (the study's device-busy share), on the
    same scenes (``bench.py``'s protocol, keys and gates).  Its JSON is logged; it must hold every key, a
-   stage-1 gate value for every monument and ``quality_ok``.
+   stage-1 gate value for every monument and ``quality_ok``, and both
+   stage-2 kernels must have launched in it.
 
 8. the evaluation path, after the study.  Notebook 4: the three table
    bodies of ``pbr3d_torch.eval.intra`` over all five monuments on the
@@ -160,6 +175,7 @@ from pbr3d_torch.camera.align import (
 )
 from pbr3d_torch.camera.estimate import (
     auto_compute_initial_params_matching_bbox,
+    keypoint_fit_inputs,
     optimize_camera_with_keypoints,
 )
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
@@ -181,7 +197,8 @@ from pbr3d_torch.carving import fused as fused_route
 from pbr3d_torch.ops import components, morphology, neighbors
 from pbr3d_torch.ops.cuda_kernels import (
     component_stats_kernel, component_stats_plain, components_kernel, components_plain, knn_kernel, knn_plain,
-    load_extension, min_dist2_kernel, min_dist2_plain,
+    lm_fit_kernel, lm_fit_plain, load_extension, min_dist2_kernel, min_dist2_plain, splat_iou_kernel,
+    splat_iou_plain,
 )
 from pbr3d_torch.ops.point_table import build_point_table
 from pbr3d_torch.ops.rotate import rotate_y, rotate_y_binary_u8
@@ -301,6 +318,15 @@ VIEWS = ("front", "drone")
 BATCH_IOU_ATOL = 1e-3
 #: The keypoint fit may not end worse than the JAX package's.
 LM_LOSS_RTOL = 1e-3
+#: Live steps of the LM kernel against its plain fit on one view.  Both stop
+#: at |delta| <= 1e-10 after sums rounded in other orders, which on the
+#: objective's ridge moves the stop by up to 12 of 93-164 steps on the H100;
+#: a Jacobian or damping rule that is wrong but still reaches the minimum
+#: takes many more steps, or all of them.  A gap above LM_STEP_GAP_FEW is
+#: counted, one above max(LM_STEP_GAP_MIN, a quarter of the plain fit's
+#: steps) fails.
+LM_STEP_GAP_FEW = 4
+LM_STEP_GAP_MIN = 16
 #: Final IoU of a run on the JAX draws vs the JAX run's; of a run on the
 #: port's own generator vs the worst of five JAX seeds.  The search is
 #: chaotic in its start: JAX itself, started 0.5 off its drone keypoint
@@ -835,6 +861,229 @@ def phase_components_kernel(fx) -> dict:
     return out
 
 
+#: Stage 2's kernels (phase 2): the LM's losses against the plain fit's on
+#: the same card (rtol ``LM_LOSS_RTOL``: the objective's near-flat ridge
+#: moves the end point with the sum order), and splat-IoU against the plain
+#: version (``BATCH_IOU_ATOL``: equal but for pixels where one true FMA and
+#: the plain version's float64 emulation round apart, each ~1/union).  The
+#: bound counts FP32 operations at 67 TFLOP/s (an FMA two): a step of the
+#: LM ~540 a keypoint (the dual projection with 6 tangents, the Jacobian row
+#: pair and its J^T J / J^T r products, the loss at x_new) and ~700 a fit (the
+#: rotation with 3 tangents, the 9 x 9 LU and the clip); splat-IoU 30 a
+#: valid point and camera (the projection, rounding and bounds) and 4 a
+#: pixel, camera and part plus 2 (the label, the compares, the counts).
+LM_OPS_PER_KEYPOINT_STEP = 540
+LM_OPS_PER_STEP = 700
+SPLAT_OPS_PER_POINT = 30
+COUNT_OPS_PER_PIXEL_PART = 4
+FP32_FLOPS_PER_S = 67e12
+
+
+def lm_bound(steps: np.ndarray, K: int, V: int):
+    """(least ms, "bytes" or "operations") of V fits of K keypoints that took
+    ``steps`` steps: the steps this run's data needed, each input read and
+    each output written once."""
+    ops = float(np.sum(steps)) * (LM_OPS_PER_KEYPOINT_STEP * K + LM_OPS_PER_STEP)
+    nbytes = 4 * V * (9 * 3 + K * 6) + 4 * V * (9 + 1 + 1)
+    ops_s, bytes_s = ops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s else "bytes")
+
+
+def splat_iou_bound(V: int, P: int, n_valid: int, N: int, H: int, W: int, K: int, has_valid: bool):
+    """(least ms, bound_by, the design's own plane bytes) of one splat-IoU
+    call: cameras, points, labels, valid flags and ground truth read once,
+    the IoUs written once; beside it the plane the design clears and reads
+    (4 B a pixel and camera each way)."""
+    ops = P * (n_valid * SPLAT_OPS_PER_POINT + V * H * W * (COUNT_OPS_PER_PIXEL_PART * K + 2))
+    nbytes = V * P * 36 + V * N * (12 + 1 + int(has_valid)) + V * H * W + 4 * V * P
+    ops_s, bytes_s = ops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", 2 * 4 * V * P * H * W)
+
+
+def _fit_batch(rows, device: str):
+    """(V, ...) tensors on ``device`` of fit rows padded with masked
+    keypoints to the largest K."""
+    K = max(r[1].shape[0] for r in rows)
+    out = [[] for _ in range(6)]
+    for x0, vox, img, mask, lo, hi in rows:
+        pad = K - vox.shape[0]
+        for i, a in enumerate((x0, np.pad(vox, ((0, pad), (0, 0))), np.pad(img, ((0, pad), (0, 0))),
+                               np.pad(mask, (0, pad)), lo, hi)):
+            out[i].append(a)
+    return [torch.from_numpy(np.stack(a)).to(device) for a in out]
+
+
+def lm_agree(rows, names, what: str, jax_losses=None, device: str = "cuda") -> dict:
+    """The LM kernel against its plain version on the card (one launch for
+    all rows), timed in turns; ``jax_losses`` bounds the kernel's losses
+    from above by the JAX package's."""
+    args = _fit_batch(rows, device)
+    xk, lk, sk = lm_fit_kernel(*args)
+    xp, lp, sp = lm_fit_plain(*args)
+    torch.cuda.synchronize()
+    lk, lp, sk, sp = (t.cpu().numpy() for t in (lk, lp, sk, sp))
+    rel = np.abs(lk - lp) / lp
+    for i, name in enumerate(names):
+        jax = "" if jax_losses is None else f" jax={jax_losses[i]!r}"
+        log(f"lm_fit {what} {name}: kernel_loss={lk[i]!r} plain_loss={lp[i]!r}{jax} rel={rel[i]:.3e} "
+            f"steps kernel/plain={sk[i]}/{sp[i]} |dx|={float((xk[i] - xp[i]).norm()):.4f}")
+    check(bool(np.all(np.isfinite(lk))) and xk.shape == (len(rows), 9), f"lm_fit {what}: outputs {lk}")
+    check(bool(np.all(rel <= LM_LOSS_RTOL)), f"lm_fit {what}: kernel losses {lk} vs plain {lp}")
+    gap = np.abs(sk.astype(np.int64) - sp)
+    log(f"lm_fit {what}: step gaps kernel/plain above {LM_STEP_GAP_FEW}: {int((gap > LM_STEP_GAP_FEW).sum())} "
+        f"of {len(rows)} (largest {int(gap.max())})")
+    check(bool(np.all(gap <= np.maximum(LM_STEP_GAP_MIN, sp // 4))),
+          f"lm_fit {what}: kernel steps {sk.tolist()} vs plain {sp.tolist()}")
+    if jax_losses is not None:
+        check(bool(np.all(lk <= np.asarray(jax_losses) * (1 + LM_LOSS_RTOL))),
+              f"lm_fit {what}: kernel losses {lk} above JAX's {jax_losses}")
+    t = time_in_turns({"plain": lambda: lm_fit_plain(*args), "kernel": lambda: lm_fit_kernel(*args)},
+                      {"plain": 1, "kernel": 10}, ["plain", "kernel", "kernel", "plain"])
+    bound, bound_by = lm_bound(sk, args[1].shape[1], len(rows))
+    ms, plain_ms = float(np.mean(t["kernel"])), float(np.mean(t["plain"]))
+    log(f"lm_fit {what}: V={len(rows)} K={args[1].shape[1]} kernel_ms={t['kernel']} plain_ms={t['plain']} "
+        f"bound_ms={bound:.3e} ({bound_by}; the chain of steps is latency-bound) steps={sk.tolist()}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "max_abs_err": float(np.max(np.abs(lk - lp))), "max_rel_loss_err": float(rel.max())}
+
+
+def splat_iou_agree(cams, pts, labels, valid, gt, ids, hw, what: str, timed: bool = False) -> dict:
+    """The splat-IoU kernel against its plain version on the card, on one
+    batch in the kernel's layout; with ``timed`` both timed in turns."""
+    k = splat_iou_kernel(cams, pts, labels, valid, gt, ids, hw)
+    p = splat_iou_plain(cams, pts, labels, valid, gt, ids, hw)
+    torch.cuda.synchronize()
+    err = (k - p).abs()
+    V, P = cams.shape[:2]
+    H, W = gt.shape[1:]
+    log(f"splat_iou {what}: V={V} P={P} N={pts.shape[1]} plane={H}x{W} max_abs_err={float(err.max()):.3e} "
+        f"unequal={int((err > 0).sum())} of {V * P} tol={BATCH_IOU_ATOL:g} best={float(k.max()):.6f}")
+    check(k.shape == (V, P) and bool(torch.isfinite(k).all()), f"splat_iou {what}: output {k.shape}")
+    check(float(err.max()) <= BATCH_IOU_ATOL, f"splat_iou {what}: kernel vs plain off by {float(err.max())}")
+    out = {"max_abs_err": float(err.max()), "unequal": int((err > 0).sum())}
+    if timed:
+        t = time_in_turns({"plain": lambda: splat_iou_plain(cams, pts, labels, valid, gt, ids, hw),
+                           "kernel": lambda: splat_iou_kernel(cams, pts, labels, valid, gt, ids, hw)},
+                          {"plain": 5, "kernel": 50}, ["plain", "kernel", "kernel", "plain"])
+        n_valid = pts.shape[1] * V if valid is None else int(valid.sum())
+        bound, bound_by, plane_bytes = splat_iou_bound(V, P, n_valid, pts.shape[1], H, W, len(ids), valid is not None)
+        ms = float(np.mean(t["kernel"]))
+        log(f"splat_iou {what}: kernel_ms={t['kernel']} plain_ms={t['plain']} bound_ms={bound:.4f} ({bound_by}) "
+            f"share_of_bound={bound / ms:.3f}; the design's plane clear + read {plane_bytes} B = "
+            f"{plane_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+        out.update({"ms": ms, "plain_ms": float(np.mean(t["plain"])), "bound_ms": bound, "bound_by": bound_by,
+                    "plane_bytes_ms": plane_bytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def phase_stage2_kernels(fx, fx2, fxs, device: str = "cuda", study_tag: str = "golden") -> dict:
+    """Stage 2's kernels against their plain versions on the card: the LM on
+    both Bibi@512 views of the stage-2 fixture (the path's one fit a launch;
+    no loss above the JAX package's) and on the ten golden study views in
+    one launch; splat-IoU on the fixture's 64-camera batches at the native
+    plane (the polish's), with hard cameras and points, and on a batch of
+    three views in ``_search``'s layout (padded points, planes and
+    ``hw``).  Both timed against their plain versions at the path's
+    shapes."""
+    t0 = time.perf_counter()
+    grid = np.ascontiguousarray(fx["grid"])
+    grid_dev = torch.as_tensor(grid, device=device)
+    views = {v: fx2[f"{v}_mask"] for v in VIEWS}
+    rows = []
+    for v in VIEWS:
+        vk, ik = extract_minaret_kps_for_view(grid, views[v])
+        init = auto_compute_initial_params_matching_bbox(grid_dev, views[v], ALIGN_PARTS, device=device)
+        check(np.array_equal(params_to_vector(init), fx2[f"{v}_init"]), f"{v}: bbox init vs JAX")
+        rows.append(keypoint_fit_inputs(vk, ik, views[v].shape, init))
+    # the path's shape: one fit a launch
+    per_view = [lm_agree([row], [v], "Bibi@512", [float(fx2[f"{v}_kp_loss"])], device)
+                for v, row in zip(VIEWS, rows)]
+    out = {"lm_fit": {key: float(np.mean([g[key] for g in per_view])) for key in ("ms", "plain_ms", "bound_ms")},
+           "splat_iou": {}}
+    out["lm_fit"].update({key: max(g[key] for g in per_view) for key in ("max_abs_err", "max_rel_loss_err")},
+                         bound_by=per_view[0]["bound_by"])
+
+    scenes = study_scenes(fxs, study_tag)
+    grids = carve_monuments_batched({m: s.front for m, s in scenes.items()}, device=device)
+    study_rows, names = [], []
+    for m, s in scenes.items():
+        g_dev = torch.as_tensor(grids[m], device=device)
+        for v, mask in s.views.items():
+            vk, ik = extract_minaret_kps_for_view(grids[m], mask)
+            init = auto_compute_initial_params_matching_bbox(g_dev, mask, ALIGN_PARTS, device=device)
+            study_rows.append(keypoint_fit_inputs(vk, ik, mask.shape[:2], init))
+            names.append(f"{m}/{v}")
+    check(len(study_rows) == 10, f"study views with keypoints: {names}")
+    got = lm_agree(study_rows, names, f"{study_tag} study, one launch", device=device)
+    out["lm_fit"].update({"ms_v10": got["ms"], "plain_ms_v10": got["plain_ms"], "bound_ms_v10": got["bound_ms"],
+                          "max_abs_err": max(out["lm_fit"]["max_abs_err"], got["max_abs_err"]),
+                          "max_rel_loss_err": max(out["lm_fit"]["max_rel_loss_err"], got["max_rel_loss_err"])})
+    lap = time.perf_counter()
+    log(f"phase 2 lm_fit: {lap - t0:.1f} s")
+
+    ids = config.part_ids(ALIGN_PARTS).tolist()
+    pts, labels = surface_points_by_parts(grid_dev, ALIGN_PARTS, device=device)
+    worst, unequal = 0.0, 0
+    for v in VIEWS:  # the fixture's batches at the native plane (the polish's)
+        gt = torch.as_tensor(mask_labels_selected(views[v], ALIGN_PARTS), device=device)
+        cams = torch.as_tensor(fx2[f"{v}_batch"], device=device)
+        got = splat_iou_agree(cams[None], pts[None], labels[None], None, gt[None], ids, None,
+                              f"Bibi@512 {v} fixture batch", timed=v == "front")
+        if v == "front":
+            out["splat_iou"].update(got)
+        worst, unequal = max(worst, got["max_abs_err"]), unequal + got["unequal"]
+        k = splat_iou_kernel(cams[None], pts[None], labels[None], None, gt[None], ids)[0].cpu().numpy()
+        log(f"splat_iou Bibi@512 {v}: kernel vs the JAX package's IoUs max_abs_err="
+            f"{np.abs(k - fx2[f'{v}_batch_iou']).max():.3e} unequal={int((k != fx2[f'{v}_batch_iou']).sum())}")
+
+    # hard cameras (straight down the up axis, inside the shell, a long
+    # focal length, looking away) and points (copies on one pixel with other
+    # labels, points far behind and beside)
+    rng = np.random.default_rng(12)
+    base = fx2["front_batch"][0]
+    centre = pts.mean(dim=0).cpu().numpy()
+    hard = np.repeat(base[None], 4, axis=0)
+    hard[0, 0:3], hard[0, 3:6] = centre + np.float32([0, -600, 0]), centre
+    hard[1, 0:3] = centre
+    hard[2, 6] = 5000.0
+    hard[3, 0:3], hard[3, 3:6] = centre + np.float32([0.5, 0.25, -900]), centre + np.float32([0.5, 0.25, -1800])
+    pick = torch.as_tensor(rng.choice(pts.shape[0], 5000, replace=False), device=device)
+    far = torch.as_tensor(rng.uniform(-1e4, 1e4, (500, 3)).astype(np.float32), device=device)
+    hard_pts = torch.cat([pts, pts[pick], far])
+    hard_labels = torch.cat([labels, torch.as_tensor(rng.choice(np.array([0, 5, 6, 9], np.uint8), 5500),
+                                                     device=device)])
+    cams = torch.as_tensor(np.concatenate([fx2["front_batch"][:28], hard]), device=device)
+    gt = torch.as_tensor(mask_labels_selected(views["front"], ALIGN_PARTS), device=device)
+    got = splat_iou_agree(cams[None], hard_pts[None], hard_labels[None], None, gt[None], ids, None,
+                          "Bibi@512 front, hard cameras and points")
+    worst, unequal = max(worst, got["max_abs_err"]), unequal + got["unequal"]
+
+    # three views in _search's layout: the two views at native resolution on
+    # the shell and on every second point, the front at half resolution on
+    # every third; points padded with invalid ones, planes to the largest
+    sets = [(pts, labels, views["front"], 1), (pts[::2], labels[::2], views["drone"], 1),
+            (pts[::3], labels[::3], views["front"][::2, ::2], 2)]
+    V, N = len(sets), pts.shape[0]
+    H, W = max(s[2].shape[0] for s in sets), max(s[2].shape[1] for s in sets)
+    pts_b = torch.as_tensor(rng.uniform(0, 512, (V, N, 3)).astype(np.float32), device=device)
+    lab_b = torch.full((V, N), 5, dtype=torch.uint8, device=device)
+    val_b = torch.zeros((V, N), dtype=torch.bool, device=device)
+    gt_b = torch.zeros((V, H, W), dtype=torch.uint8, device=device)
+    cams_b = torch.as_tensor(np.stack([fx2["front_batch"], fx2["drone_batch"], fx2["front_batch"]]), device=device)
+    for i, (p, lab, mask, s) in enumerate(sets):
+        n = p.shape[0]
+        pts_b[i, :n], lab_b[i, :n], val_b[i, :n] = p, lab, True
+        gt_b[i, : mask.shape[0], : mask.shape[1]] = torch.as_tensor(mask_labels_selected(mask, ALIGN_PARTS))
+        cams_b[i, :, 6:9] /= s
+    hw = torch.tensor([s[2].shape for s in sets], dtype=torch.int32, device=device)
+    got = splat_iou_agree(cams_b, pts_b, lab_b, val_b, gt_b, ids, hw, "three views in _search's layout", timed=True)
+    out["splat_iou"].update({f"{k}_v3": got[k] for k in ("ms", "plain_ms", "bound_ms")})
+    worst, unequal = max(worst, got["max_abs_err"]), unequal + got["unequal"]
+    out["splat_iou"].update({"max_abs_err": worst, "unequal": unequal})
+    log(f"phase 2 splat_iou: {time.perf_counter() - lap:.1f} s; max_abs_err={worst:.3e} unequal={unequal}")
+    return {name: {**vals, "library_ms": None} for name, vals in out.items()}
+
+
 def phase_stage1(fx):
     """Returns the fused route's grid and its (cold, warm) seconds."""
     colored = rgb_to_labels(np.load(ORACLE)["colored"])
@@ -909,8 +1158,23 @@ def phase_metrics(fx, grid: np.ndarray) -> int:
     return launches
 
 
-def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> dict:
-    """Returns the final IoU per view of the body as a user runs it."""
+STAGE2_KERNELS = {"lm_fit": lm_fit_kernel, "splat_iou": splat_iou_kernel}
+
+
+def _stage2_launches() -> dict:
+    return {name: w.launches for name, w in STAGE2_KERNELS.items()}
+
+
+def _zero_stage2_launches() -> None:
+    for w in STAGE2_KERNELS.values():
+        w.launches = 0
+
+
+def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda", launches=None) -> dict:
+    """Returns the final IoU per view of the body as a user runs it; records
+    the stage-2 kernels' launches over the phase in ``launches["stage2"]``
+    (both must be positive on the card)."""
+    _zero_stage2_launches()
     views = {v: fx2[f"{v}_mask"] for v in VIEWS}
     draws = {s: fx2[f"draws_{s}"] for s in (0, 1, 3)}
     ids = config.part_ids(ALIGN_PARTS)
@@ -1015,6 +1279,12 @@ def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda") -> dict:
                 keys = ["cam_pos", "target", "f", "cx", "cy"] + (["H", "W"] if tag == "final" else [])
                 check(list(raw[v]) == keys, f"{tag}/{v} JSON keys {list(raw[v])}")
         log("stage2 artifacts: init/kp/final camera JSONs saved and read back in the reference layout")
+    counted = _stage2_launches()
+    log(f"stage2: stage-2 kernel launches over the phase {counted}")
+    if device == "cuda":
+        check(all(counted.values()), f"stage2: a stage-2 kernel was never launched: {counted}")
+    if launches is not None:
+        launches["stage2"] = counted
     return out["ious"]
 
 
@@ -1431,9 +1701,11 @@ def _study_prof(text: str) -> dict:
     return out
 
 
-def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "cuda"):
+def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "cuda", launches=None):
     """Phase 7 at one of ``STUDY_RUNS``; ``fxs`` is the study fixture.
-    Returns (results by monument, the scenes' masks)."""
+    Returns (results by monument, the scenes' masks).  The stage-2 kernels'
+    launches in the first call go to ``launches[f"study_{tag}"]``; on the
+    card both must be positive."""
     run = STUDY_RUNS[tag]
     monuments = list(config.MONUMENTS)
     scenes = study_scenes(fxs, tag)
@@ -1474,16 +1746,22 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
         with mock.patch.object(pipeline, "refine_cameras_batched", recording_search), \
                 mock.patch.object(profiling, "PROFILE", True), contextlib.redirect_stderr(err_text):
             torch.cuda.synchronize()
+            _zero_stage2_launches()
             t0 = time.perf_counter()
             results = study(tmp)
             torch.cuda.synchronize()
             first = time.perf_counter() - t0
+            counted = _stage2_launches()
         peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
         text = err_text.getvalue()
         check(list(results) == monuments, f"study {tag}: results for {list(results)}")
         log(f"study {tag} {where}: run_all first call wall_s={first:.3f} (with [prof] fences and artifacts) "
             f"peak_mem_bytes={peak} peak_reserved_bytes={reserved} "
-            f"min_dist2 launches={min_dist2_kernel.launches - launches0}")
+            f"min_dist2 launches={min_dist2_kernel.launches - launches0} stage-2 kernel launches={counted}")
+        if device == "cuda":
+            check(all(counted.values()), f"study {tag}: a stage-2 kernel was never launched: {counted}")
+        if launches is not None:
+            launches[f"study_{tag}"] = counted
         for msg in re.findall(r"^\[(?:run_all|stage2|stage3|(?!prof)\w+\] stage\d).*$", text, re.M):
             log(f"study {tag} log: {msg}")
         for name, (secs, n) in sorted(_study_prof(text).items()):
@@ -1622,18 +1900,25 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
     return results, scenes
 
 
-def phase_bench(fxs, card: str, device: str = "cuda") -> dict:
+def phase_bench(fxs, card: str, device: str = "cuda"):
     """The study bench (``bench_torch.bench``) at 256: two passes and the
     profiled one.  Its JSON holds every key, a stage-1 gate value for every
-    monument, and ``quality_ok``."""
+    monument, and ``quality_ok``; both stage-2 kernels must have launched.
+    Returns (its JSON, the stage-2 kernels' launches)."""
     t0 = time.perf_counter()
-    wrappers = (min_dist2_kernel, knn_kernel, components_kernel, component_stats_kernel)
-    before = [w.launches for w in wrappers]
-    out = bench_torch.bench(study_scenes(fxs, "256"), bench_torch.CONFIGS["256"], 2, device=device,
+    scenes = study_scenes(fxs, "256")
+    wrappers = (min_dist2_kernel, knn_kernel, components_kernel, component_stats_kernel, lm_fit_kernel,
+                splat_iou_kernel)
+    for w in wrappers:
+        w.launches = 0
+    out = bench_torch.bench(scenes, bench_torch.CONFIGS["256"], 2, device=device,
                             golden_dir=bench_torch.GOLDEN_DIR, trace=True)
+    counted = {w.__name__: w.launches for w in wrappers}
     log(f"bench 256 [{card}]: " + json.dumps(out))
-    log("bench: hand-written kernel launches over its three passes and gates: " + json.dumps(
-        {w.__name__: w.launches - n for w, n in zip(wrappers, before)}))
+    log("bench: hand-written kernel launches over its three passes and gates: " + json.dumps(counted))
+    if device == "cuda":
+        check(counted["lm_fit_kernel"] > 0 and counted["splat_iou_kernel"] > 0,
+              f"bench: a stage-2 kernel was never launched: {counted}")
     check(list(out) == list(bench_torch.KEYS + bench_torch.TRACE_KEYS), f"bench: keys {list(out)}")
     check(out["card"] == card, f"bench: card {out['card']!r}")
     check(list(out["quality"]) == list(config.MONUMENTS)
@@ -1641,7 +1926,7 @@ def phase_bench(fxs, card: str, device: str = "cuda") -> dict:
           f"bench: quality {out['quality']}")
     check(out["quality_ok"], f"bench: the quality gates failed: {out['quality']}")
     log(f"phase bench: {time.perf_counter() - t0:.1f} s")
-    return out
+    return out, {"lm_fit": counted["lm_fit_kernel"], "splat_iou": counted["splat_iou_kernel"]}
 
 
 def nb5_sparse_cloud(shell_xyz: np.ndarray) -> np.ndarray:
@@ -2062,9 +2347,11 @@ def main() -> int:
         return 0
 
     fx = np.load(FIXTURE)
+    fx2 = np.load(FIXTURE2)
     kernel = phase_kernel()
     knn = phase_knn_kernel()
     comps = phase_components_kernel(fx)
+    stage2 = phase_stage2_kernels(fx, fx2, fxs)
     if sys.argv[1:] == ["kernels"]:
         log(f"kernels alone: {time.perf_counter() - t0:.1f} s; a partial run prints no result line")
         return 0
@@ -2073,13 +2360,13 @@ def main() -> int:
     grid, fused_times = phase_stage1(fx)
     launches = phase_metrics(fx, grid)
     check(launches > 0, "the metrics never launched the min-dist kernel")
-    fx2 = np.load(FIXTURE2)
-    ious2 = phase_stage2(fx2, grid)
+    stage2_paths = {}  # path -> {kernel name: launches}
+    ious2 = phase_stage2(fx2, grid, launches=stage2_paths)
     phase_stage3(np.load(FIXTURE3), fx2, grid)
     log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
-    produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"]),
-                "256": phase_study(fxs, "256", card)}
-    phase_bench(fxs, card)
+    produced = {"golden": phase_study(fxs, "golden", card, bibi_front_floor=ious2["front"], launches=stage2_paths),
+                "256": phase_study(fxs, "256", card, launches=stage2_paths)}
+    stage2_paths["bench"] = phase_bench(fxs, card)[1]
     launches9, crop9 = phase_stage1_api(fx, fxs, card, fused=(grid, fused_times))
     t8 = time.perf_counter()
     taj = phase_eval_nb4(fxs, ev, card, produced)
@@ -2099,7 +2386,12 @@ def main() -> int:
     }] + [{"name": name, "route": "cuda", "source": "pbr3d_torch/csrc/components.cu",
            "replaces": f"pbr3d/ops/components.py:{line}", "launches": launches9[name], **comps[name],
            **crop9[name]}
-          for name, line in (("components", 114), ("component_stats", 367))]}))
+          for name, line in (("components", 114), ("component_stats", 367))]
+        + [{"name": name, "route": "cuda", "source": f"pbr3d_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": sum(stage2_paths[f"study_{tag}"][name] for tag in STUDY_RUNS),
+            **{f"launches_{path}": n[name] for path, n in stage2_paths.items()}, **stage2[name]}
+           for name, replaces in (("lm_fit", "pbr3d/camera/estimate.py:77"),
+                                  ("splat_iou", "pbr3d/camera/align.py:56"))]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -14,8 +14,10 @@ the selected parts' surface shell and the selected-parts mask:
 
 The whole state stays on the device: the accept/shrink/freeze rules are
 ``torch.where`` updates, so no generation waits on the host.  A candidate
-batch is one batched splat + IoU (``_batch_iou``); populations above
-``pop_chunk`` run in chunks of it.
+batch is one batched splat + IoU (``_batch_iou``): on the card one call of
+the hand-written kernel :func:`pbr3d_torch.ops.cuda_kernels.splat_iou_kernel`
+(a memset and three launches), on the CPU its plain version; populations
+above ``pop_chunk`` run in chunks of it.
 
 Draws.  The JAX package draws its proposals from ``jax.random`` (threefry),
 which torch cannot reproduce.  ``draws=None`` takes them from a
@@ -34,9 +36,9 @@ one group run through the same launches, each with its own points, plane,
 start and step scale, and all with the same draws.
 :func:`refine_cameras_batched` (``run_all``'s search of all views) groups
 the views as the JAX package does.  On this card the reason to group is the
-launch count: one search is a few hundred small launches a generation and
-leaves the device mostly idle, and a group of V views costs the launches of
-one.
+launch count: a generation is a handful of small launches (the splat-IoU
+kernel's four and the state's updates) and leaves the device mostly idle,
+and a group of V views costs the launches of one.
 
 Not ported: the one-hot matmul objective the JAX package uses for coarse
 planes of at most 2^18 pixels (inside its half-resolution recursion and in
@@ -54,7 +56,7 @@ from pbr3d_torch import config
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.carving.voxel import bucket_size, points_by_parts, surface_points_by_parts
 from pbr3d_torch.ops.cameramath import _fma
-from pbr3d_torch.ops.projection import partwise_iou, splat_labels
+from pbr3d_torch.ops.cuda_kernels import splat_iou_kernel, splat_iou_plain
 from pbr3d_torch.utils.streams import adopt
 
 #: Reference step sizes (camera_estimation.py:605-616).
@@ -69,7 +71,7 @@ _COARSE_PLANE_PIXELS = 512 * 512
 #: package's bound on its projection intermediates.
 _POINT_BUDGET = 1 << 26
 
-#: Plane pixels x cameras x views per evaluated batch: bounds the int64 splat
+#: Plane pixels x cameras x views per evaluated batch: bounds the splat
 #: planes, which the point budget does not see.  Candidates are scored
 #: independently, so a smaller batch changes no score.
 _PLANE_BUDGET = 1 << 28
@@ -78,16 +80,28 @@ Draws = Optional[Union[Mapping[int, np.ndarray], Callable[[int, int, int], np.nd
 
 
 def _batch_iou(cam_vecs: torch.Tensor, pts, labels, gt_labels, part_ids, H: int, W: int,
-               valid=None, true_hw=None):
+               valid=None, hw=None):
     """(P,) float32 mean part IoU of each (P, 9) camera's splat of ``pts``
-    against ``gt_labels (H, W)``; or ``(V, P)`` for V views at once, in the
-    layout of :func:`pbr3d_torch.ops.projection.splat_labels` with
-    ``gt_labels (V, 1, H, W)``."""
-    img = splat_labels(
-        pts, labels, valid, cam_vecs[..., 0:3], cam_vecs[..., 3:6],
-        cam_vecs[..., 6], cam_vecs[..., 7], cam_vecs[..., 8], H, W, true_hw,
-    )
-    return partwise_iou(img, gt_labels, part_ids)[1]
+    (N, 3) with uint8 ``labels`` (N,) against ``gt_labels (H, W)``; or
+    ``(V, P)`` for V views at once, in the layout of
+    :func:`pbr3d_torch.ops.cuda_kernels.splat_iou_kernel`: ``pts (V, N, 3)``,
+    ``labels``/``valid (V, N)``, ``gt_labels (V, H, W)`` and ``hw (V, 2)``
+    int32 each view's true plane inside (H, W).  CUDA tensors go to
+    ``splat_iou_kernel``, CPU tensors to ``splat_iou_plain``."""
+    if (gt_labels.shape[-2], gt_labels.shape[-1]) != (H, W):
+        raise ValueError(f"ground truth {tuple(gt_labels.shape)} is not on the ({H}, {W}) plane")
+    if cam_vecs.device.type == "cuda":
+        score = splat_iou_kernel
+    elif cam_vecs.device.type == "cpu":
+        score = splat_iou_plain
+    else:
+        raise ValueError(f"_batch_iou: unsupported device {cam_vecs.device}")
+    if cam_vecs.dim() == 2:
+        return score(cam_vecs[None].contiguous(), pts[None].contiguous(), labels[None].contiguous(),
+                     None if valid is None else valid[None].contiguous(), gt_labels[None].contiguous(),
+                     part_ids, hw)[0]
+    # _search's chunk slices of the candidates are strided
+    return score(cam_vecs.contiguous(), pts, labels, valid, gt_labels, part_ids, hw)
 
 
 def _pop_chunk(n_points: int, population: int, n_views: int = 1) -> Tuple[int, int]:
@@ -118,11 +132,11 @@ def _uniform_draws(draws: Draws, seed: int, generations: int, population: int, d
 
 def _search(
     init_vecs: torch.Tensor,  # (V, 9)
-    pts: torch.Tensor,  # (V, 1, N, 3)
-    labels: torch.Tensor,  # (V, 1, N)
-    valid,  # (V, 1, N) bool, or None: every point valid
-    gt_labels: torch.Tensor,  # (V, 1, H, W)
-    true_hw,  # ((V, 1, 1), (V, 1, 1)) image bounds inside (H, W), or None
+    pts: torch.Tensor,  # (V, N, 3)
+    labels: torch.Tensor,  # (V, N)
+    valid,  # (V, N) bool, or None: every point valid
+    gt_labels: torch.Tensor,  # (V, H, W)
+    hw,  # (V, 2) int32 image bounds inside (H, W), or None
     part_ids,
     u: torch.Tensor,  # (generations, population, 9) uniform [-1, 1)
     cd_rounds: int,
@@ -144,7 +158,7 @@ def _search(
 
     def eval_batch(vecs):  # (V, P, 9) -> (V, P)
         return torch.cat([
-            _batch_iou(vecs[:, i:i + chunk], pts, labels, gt_labels, part_ids, H, W, valid, true_hw)
+            _batch_iou(vecs[:, i:i + chunk], pts, labels, gt_labels, part_ids, H, W, valid, hw)
             for i in range(0, vecs.shape[1], chunk)
         ], dim=1)
 
@@ -191,8 +205,8 @@ def _search_one(init_vec: torch.Tensor, pts, labels, mask_sel, part_ids, u, cd_r
     point count, from ``init_vec (9,)``; returns (best (9,), IoU)."""
     dev = init_vec.device
     best, biou = _search(
-        init_vec[None], pts[None, None], labels[None, None], None,
-        torch.as_tensor(mask_sel, device=dev)[None, None], None, part_ids, u, cd_rounds,
+        init_vec[None], pts[None], labels[None], None,
+        torch.as_tensor(mask_sel, device=dev)[None], None, part_ids, u, cd_rounds,
         lock_xy_equal, pop_chunk, torch.tensor([step_scale], dtype=torch.float32, device=dev),
         tuple(cd_mags),
     )
@@ -292,24 +306,22 @@ def refine_cameras_batched(
         N = max(p["n_coarse"] for p in members)
         Hg = max(p["coarse_mask"].shape[0] for p in members)
         Wg = max(p["coarse_mask"].shape[1] for p in members)
-        pts_b = torch.zeros((V, 1, N, 3), dtype=torch.float32, device=device)
-        lab_b = torch.zeros((V, 1, N), dtype=torch.uint8, device=device)
-        val_b = torch.zeros((V, 1, N), dtype=torch.bool, device=device)
-        gt_b = np.zeros((V, 1, Hg, Wg), np.uint8)
+        pts_b = torch.zeros((V, N, 3), dtype=torch.float32, device=device)
+        lab_b = torch.zeros((V, N), dtype=torch.uint8, device=device)
+        val_b = torch.zeros((V, N), dtype=torch.bool, device=device)
+        gt_b = np.zeros((V, Hg, Wg), np.uint8)
         for i, p in enumerate(members):
             n = p["n_coarse"]
-            pts_b[i, 0, :n] = p["pts"][:: p["stride"]]
-            lab_b[i, 0, :n] = p["labels"][:: p["stride"]]
-            val_b[i, 0, :n] = True
+            pts_b[i, :n] = p["pts"][:: p["stride"]]
+            lab_b[i, :n] = p["labels"][:: p["stride"]]
+            val_b[i, :n] = True
             cm = p["coarse_mask"]
-            gt_b[i, 0, : cm.shape[0], : cm.shape[1]] = cm
-        true_hw = tuple(
-            torch.tensor([p["coarse_mask"].shape[a] for p in members], device=device).view(V, 1, 1)
-            for a in (0, 1))
+            gt_b[i, : cm.shape[0], : cm.shape[1]] = cm
+        hw_b = torch.tensor([p["coarse_mask"].shape[:2] for p in members], dtype=torch.int32, device=device)
         pop_chunk, pop = _pop_chunk(bucket, population, V)
         best, biou = _search(
             torch.tensor(np.stack([params_to_vector(p["init"]) for p in members]), device=device),
-            pts_b, lab_b, val_b, torch.as_tensor(gt_b, device=device), true_hw,
+            pts_b, lab_b, val_b, torch.as_tensor(gt_b, device=device), hw_b,
             members[0]["part_ids"], _uniform_draws(draws, seed, generations, pop, device),
             0, lock_xy_equal, pop_chunk,
             torch.tensor([p["step_scale"] for p in members], dtype=torch.float32, device=device),

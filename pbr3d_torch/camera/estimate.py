@@ -7,15 +7,19 @@
   utils/camera_estimation.py:56-108).
 * :func:`optimize_camera_with_keypoints` is the JAX package's bounded
   Levenberg-Marquardt fit over the 9 camera DoF (it replaced the reference's
-  scipy L-BFGS-B): residual Jacobians by forward-mode AD, box bounds by
-  projection, damping adapted per step.  It runs in float32 on the device.
-  The normal equations are elementwise sums, not matmuls, so no TF32 can
-  enter them (the JAX package asks for ``Precision.HIGHEST`` there).
+  scipy L-BFGS-B): residual Jacobians by forward-mode derivatives, box bounds
+  by projection, damping adapted per step, in float32.  On the card the whole
+  fit is one launch of the hand-written kernel
+  :func:`pbr3d_torch.ops.cuda_kernels.lm_fit_kernel` (dual numbers in
+  registers, no autograd); on CPU tensors it is the plain version
+  :func:`~pbr3d_torch.ops.cuda_kernels.lm_fit_plain`, PyTorch's forward-mode
+  AD, which holds a process-wide lock (one dual level a process).  The
+  normal equations are elementwise sums, not matmuls, so no TF32 can enter
+  them (the JAX package asks for ``Precision.HIGHEST`` there).
 """
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -23,13 +27,7 @@ import torch
 
 from pbr3d_torch import config
 from pbr3d_torch.carving.voxel import points_by_parts
-from pbr3d_torch.ops.cameramath import project_points
-
-
-#: Forward-mode AD keeps one dual level for the whole process, and a second
-#: thread that enters it raises "Nested forward mode AD is not supported":
-#: the fits of concurrent threads (``run_all``'s preparation pool) take turns.
-_FORWARD_AD_LOCK = threading.Lock()
+from pbr3d_torch.ops.cuda_kernels import lm_fit_kernel, lm_fit_plain
 
 
 def init_from_bbox(
@@ -105,60 +103,44 @@ def _lm_fit(
     loss_type: str = "L2",
     max_iters: int = 200,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bounded Levenberg-Marquardt on the keypoint residuals; returns
-    (x (9,), loss) as device tensors.
+    """Bounded Levenberg-Marquardt on the keypoint residuals of one view;
+    returns (x (9,), loss) as device tensors.  A CUDA tensor goes to the
+    hand-written kernel, a CPU tensor to its plain version (forward-mode AD
+    under ``cuda_kernels._FORWARD_AD_LOCK``); both stop where the JAX
+    package's ``while |delta| > 1e-10`` loop stops."""
+    if x0.device.type == "cuda":
+        fit = lm_fit_kernel
+    elif x0.device.type == "cpu":
+        fit = lm_fit_plain
+    else:
+        raise ValueError(f"_lm_fit: unsupported device {x0.device}")
+    x, loss, _ = fit(*(t[None] for t in (x0, vox_kps, img_kps, kp_mask, lo, hi)),
+                     loss_type=loss_type, max_iters=max_iters)
+    return x[0], loss[0]
 
-    The JAX package loops ``while it < max_iters and |delta| > 1e-10``.
-    Here all ``max_iters`` steps run, and a step taken once ``|delta|`` has
-    fallen to 1e-10 (or is NaN) changes nothing, so the state freezes where
-    the JAX loop would have stopped, with no host sync per step.
 
-    The Jacobian is forward-mode AD, as ``jax.jacfwd``: one dual evaluation
-    of the residuals at 9 copies of x whose tangents are the unit vectors
-    (the projection takes a camera batch), so a step costs two batched
-    residual evaluations and no per-direction loop."""
-    import torch.autograd.forward_ad as fwAD
-
-    def residuals(x, vox, img, mask):  # (B, 9) -> (B, R)
-        u, v, _ = project_points(vox, x[:, 0:3], x[:, 3:6], x[:, 6], x[:, 7], x[:, 8])
-        r = (torch.stack([u, v], dim=-1) - img) * mask[:, None]
-        if loss_type == "L1":
-            # Smooth |r| so the Jacobian exists everywhere.
-            r = torch.sqrt(r * r + 1e-12) * mask[:, None]
-        return r.reshape(x.shape[0], -1)
-
-    def loss(x):  # (B, 9) -> (B,)
-        r = residuals(x, vox_kps, img_kps, kp_mask)
-        return (r * r).sum(dim=1) if loss_type == "L2" else r.abs().sum(dim=1)
-
-    eye = torch.eye(9, dtype=torch.float32, device=x0.device)
-    x = x0
-    lam = torch.tensor(1e-3, dtype=torch.float32, device=x0.device)
-    dn = torch.tensor(1.0, dtype=torch.float32, device=x0.device)
-    with _FORWARD_AD_LOCK, fwAD.dual_level():
-        # The keypoints enter as duals with zero tangents: forward AD of an
-        # op that mixes dual and plain operands takes a slow decomposition.
-        consts = [fwAD.make_dual(t, torch.zeros_like(t)) for t in (vox_kps, img_kps, kp_mask)]
-        for _ in range(max_iters):
-            active = dn > 1e-10
-            r = residuals(fwAD.make_dual(x.expand(9, 9).clone(), eye), *consts)
-            if loss_type == "L1":
-                # LM on the squared residuals: for L1 they are sqrt(|r|), so
-                # LM minimises Σ|r| via IRLS.
-                r = torch.sqrt(r.abs() + 1e-12)
-            out = fwAD.unpack_dual(r)
-            r, J = out.primal[0], out.tangent.T  # (R,), (R, 9)
-            JtJ = (J[:, :, None] * J[:, None, :]).sum(dim=0)
-            g = (J * r[:, None]).sum(dim=0)
-            delta = torch.linalg.solve_ex(JtJ + lam * eye, -g)[0]
-            x_new = torch.clamp(x + delta, lo, hi)
-            l_new, l_old = loss(torch.stack([x_new, x]))
-            better = l_new < l_old
-            lam_new = torch.clamp(torch.where(better, lam * 0.5, lam * 4.0), 1e-8, 1e12)
-            x = torch.where(active & better, x_new, x)
-            lam = torch.where(active, lam_new, lam)
-            dn = torch.where(active, torch.sqrt((delta * delta).sum()), dn)
-    return x, loss(x[None])[0]
+def keypoint_fit_inputs(
+    voxel_keypoints: Dict[str, np.ndarray],
+    image_keypoints: Dict[str, Tuple[float, float]],
+    image_hw: Tuple[int, int],
+    init_params: Dict,
+) -> Tuple[np.ndarray, ...]:
+    """float32 (x0 (9,) clipped to the bounds, voxel keypoints (K, 3), image
+    keypoints (K, 2), mask (K,) of ones, lo (9,), hi (9,)) of one view's fit,
+    in the image keypoints' order."""
+    H, W = image_hw
+    keys = list(image_keypoints.keys())
+    vox = np.stack([voxel_keypoints[k] for k in keys]).astype(np.float32)
+    img = np.stack([image_keypoints[k] for k in keys]).astype(np.float32)
+    x0 = np.concatenate(
+        [
+            np.asarray(init_params["cam_pos"], np.float64),
+            np.asarray(init_params["target"], np.float64),
+            [init_params["f"], init_params["cx"], init_params["cy"]],
+        ]
+    )
+    lo, hi = default_bounds(H, W)
+    return np.clip(x0.astype(np.float32), lo, hi), vox, img, np.ones(len(keys), np.float32), lo, hi
 
 
 def optimize_camera_with_keypoints(
@@ -174,22 +156,9 @@ def optimize_camera_with_keypoints(
 
     Same objective and bounds as the reference; returns the fitted params
     dict with its final ``loss``."""
-    H, W = image_hw
-    keys = list(image_keypoints.keys())
-    vox = torch.tensor(np.stack([voxel_keypoints[k] for k in keys]).astype(np.float32), device=device)
-    img = torch.tensor(np.stack([image_keypoints[k] for k in keys]).astype(np.float32), device=device)
-    kp_mask = torch.ones(len(keys), dtype=torch.float32, device=device)
-    x0 = np.concatenate(
-        [
-            np.asarray(init_params["cam_pos"], np.float64),
-            np.asarray(init_params["target"], np.float64),
-            [init_params["f"], init_params["cx"], init_params["cy"]],
-        ]
-    )
-    lo, hi = default_bounds(H, W)
-    x0 = np.clip(x0.astype(np.float32), lo, hi)
-    as_dev = lambda a: torch.tensor(a, device=device)  # noqa: E731
-    x, fun = _lm_fit(as_dev(x0), vox, img, kp_mask, as_dev(lo), as_dev(hi), loss_type=loss_type)
+    args = [torch.tensor(a, device=device)
+            for a in keypoint_fit_inputs(voxel_keypoints, image_keypoints, image_hw, init_params)]
+    x, fun = _lm_fit(*args, loss_type=loss_type)
     x = x.cpu().numpy().astype(np.float64)
     return {
         "cam_pos": x[0:3],

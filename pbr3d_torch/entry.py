@@ -9,7 +9,8 @@ chains the compute spine of all three stages:
    carve at 45°, swept at its true extent with ``sweep_volume``;
 2. the splat of the carved grid and its mean part IoU against the
    exterior labels, and one stage-2 population of 8 cameras scored by the
-   mask-IoU search's objective (``camera.align._batch_iou``);
+   mask-IoU search's objective (``camera.align._batch_iou``: on the card the
+   hand-written ``splat_iou_kernel``);
 3. one stage-3 candidate batch of 4 deforms of the dome, scored by the
    visible-IoU objective against its own identity silhouette rolled 3 rows
    down (the planted optimum is the shift_y = 3 candidate).

@@ -9,7 +9,12 @@ the k-nearest-neighbour kernel of the same family
 ``component_stats_kernel`` (``pbr3d_torch/csrc/components.cu``) label the
 connected components of a mask and measure them, replacing the XLA
 programs ``pbr3d.ops.components._label_roots``, ``_label_dense_device``
-and ``_component_stats_jit``.  The kernels are built from
+and ``_component_stats_jit``.  Stage 2's two device programs follow:
+``lm_fit_kernel`` (``pbr3d_torch/csrc/lm_fit.cu``) runs the keypoint
+Levenberg-Marquardt fit, replacing ``pbr3d.camera.estimate._lm_fit``, and
+``splat_iou_kernel`` (``pbr3d_torch/csrc/splat_iou.cu``) scores candidate
+cameras by the splat + mean part IoU of ``pbr3d.camera.align._candidate_iou``.
+The kernels are built from
 ``pbr3d_torch/csrc/`` at first use by ``nvcc`` for ``sm_90a`` (one compile
 per source, all started together, then one link) into a shared library with
 a plain C interface, under ``build/torch_kernels/`` at the root of the
@@ -21,8 +26,10 @@ and the on-card smoke compares the kernel against.  A kernel wrapper
 accepts CUDA tensors only and raises on anything else, and on a failed
 build or launch; choosing the plain version for CPU tensors is the job of
 :func:`pbr3d_torch.ops.neighbors.min_dist2`,
-:func:`pbr3d_torch.ops.neighbors.knn2` and the device functions of
-:mod:`pbr3d_torch.ops.components`.
+:func:`pbr3d_torch.ops.neighbors.knn2`, the device functions of
+:mod:`pbr3d_torch.ops.components`,
+:func:`pbr3d_torch.camera.estimate._lm_fit` and
+:func:`pbr3d_torch.camera.align._batch_iou`.
 """
 
 from __future__ import annotations
@@ -32,14 +39,19 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
+
+from pbr3d_torch.ops.cameramath import _ISCLOSE_TOL, project_points
+from pbr3d_torch.ops.projection import partwise_iou, splat_labels
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_SOURCES = ("min_dist2.cu", "knn.cu", "components.cu")
+_SOURCES = ("min_dist2.cu", "knn.cu", "components.cu", "lm_fit.cu", "splat_iou.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,12 +69,19 @@ WAVE_FILL = 0.97
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
-@functools.cache
-def load_extension() -> ctypes.CDLL:
-    """Build (when the sources changed) and load the kernels' library.
-    Raises if ``nvcc`` is missing or the build fails.  The compiler's output,
-    ``-Xptxas -v``'s registers, shared memory and spills included, is in the
-    returned library's ``build_log``."""
+#: One build at a time in a process: the threads of ``run_all``'s
+#: preparation pool may reach their first kernel together.
+_BUILD_LOCK = threading.Lock()
+
+
+def build_library() -> Path:
+    """Path of the kernels' library, built first when the sources or flags
+    changed.  One thread of a process builds at a time, and a thread that
+    waited finds the library its predecessor built; processes build into
+    their own temporary names and rename into place.  Raises if ``nvcc`` is
+    missing or the build fails; the compiler's output, ``-Xptxas -v``'s
+    registers, shared memory and spills included, goes beside the library
+    with the suffix ``.log``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sources = [_CSRC / s for s in _SOURCES]
@@ -70,13 +89,14 @@ def load_extension() -> ctypes.CDLL:
     for src in sources:
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"pbr3d_kernels_{digest.hexdigest()[:16]}.so"
-    log_path = lib_path.with_suffix(".log")
-    if not lib_path.exists():
+    with _BUILD_LOCK:
+        if lib_path.exists():
+            return lib_path
         if CUDA_HOME is None:
             raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
         compiles = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -99,8 +119,18 @@ def load_extension() -> ctypes.CDLL:
                     proc.wait()
             for obj in objects:
                 obj.unlink(missing_ok=True)
-        log_path.write_text(log + res.stdout + res.stderr)
+        lib_path.with_suffix(".log").write_text(log + res.stdout + res.stderr)
         os.replace(tmp, lib_path)
+    return lib_path
+
+
+@functools.cache
+def load_extension() -> ctypes.CDLL:
+    """Load the kernels' library (:func:`build_library` builds it when the
+    sources changed).  Raises if ``nvcc`` is missing or the build fails.  The
+    compiler's output is in the returned library's ``build_log``."""
+    lib_path = build_library()
+    log_path = lib_path.with_suffix(".log")
     lib = ctypes.CDLL(str(lib_path))
     lib.pbr3d_min_dist2.argtypes = [_P, _I64, _P, _I64, _P, _I64, _I64, _P, _P]
     lib.pbr3d_min_dist2.restype = _I32
@@ -132,6 +162,16 @@ def load_extension() -> ctypes.CDLL:
     if got != (COMPONENTS_BIG, COMPONENTS_ROWS_PER_TILE):
         raise RuntimeError(f"{lib_path.name}: components' voxel bound and rows per tile {got}, "
                            f"expected {(COMPONENTS_BIG, COMPONENTS_ROWS_PER_TILE)}")
+    lib.pbr3d_lm_fit.argtypes = [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, ctypes.c_float,
+                                 _P, _P, _P, _P]
+    lib.pbr3d_lm_fit.restype = _I32
+    lib.pbr3d_splat_iou.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.POINTER(_I32), _I32, _I32, _I32, _I32,
+                                    _I32, _I32, ctypes.c_float, _P, _P, _P]
+    lib.pbr3d_splat_iou.restype = _I32
+    got = (lib.pbr3d_lm_fit_threads(), lib.pbr3d_splat_iou_max_parts())
+    if got != (LM_THREADS, SPLAT_IOU_MAX_PARTS):
+        raise RuntimeError(f"{lib_path.name}: the LM's threads and splat-IoU's part bound {got}, "
+                           f"expected {(LM_THREADS, SPLAT_IOU_MAX_PARTS)}")
     lib.build_log = log_path.read_text() if log_path.exists() else ""
     return lib
 
@@ -507,3 +547,216 @@ def component_stats_plain(labels: torch.Tensor, n: int):
     count = torch.bincount(lab, minlength=rows)
     sums = torch.zeros((rows, 3), dtype=torch.int64, device=dev).index_add_(0, lab, coords)
     return mins, maxs, count, sums
+
+
+#: Stage 2's kernels: the threads of an LM block (one warp a fit), and the
+#: most parts the splat-IoU kernel counts (a part's counts live in one lane);
+#: the library is checked against both.
+LM_THREADS = 32
+SPLAT_IOU_MAX_PARTS = 32
+LM_LOSS_TYPES = ("L2", "L1")
+
+
+def _check_tensor(t, name: str, dtype: torch.dtype, shape: tuple, spelled: str) -> None:
+    """dtype and shape (None: any extent); :func:`_on_one_card` checks the
+    rest once every tensor's dtype and shape have passed."""
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, t.shape)):
+        raise ValueError(f"{name} must have shape {spelled}, got {tuple(t.shape)}")
+
+
+def _on_one_card(**tensors) -> torch.device:
+    """The one CUDA device of the (non-None) tensors, each contiguous."""
+    given = {n: t for n, t in tensors.items() if t is not None}
+    for name, t in given.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devs = {t.device for t in given.values()}
+    if len(devs) > 1:
+        raise ValueError(f"tensors on several devices: { {n: str(t.device) for n, t in given.items()} }")
+    return devs.pop()
+
+
+def lm_fit_kernel(x0: torch.Tensor, vox: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
+                  lo: torch.Tensor, hi: torch.Tensor, loss_type: str = "L2", max_iters: int = 200):
+    """Bounded Levenberg-Marquardt fits of V cameras to their keypoints, all
+    in one launch: starts ``x0``, bounds ``lo``, ``hi`` (V, 9), voxel
+    keypoints ``vox`` (V, K, 3), image keypoints ``img`` (V, K, 2) and their
+    1/0 ``mask`` (V, K) (views with fewer keypoints are padded with masked
+    ones), all contiguous float32 CUDA tensors on one device.  Returns
+    (x (V, 9), loss (V,), steps (V,) int32), the function of
+    :func:`lm_fit_plain`, on the current stream without synchronising."""
+    if loss_type not in LM_LOSS_TYPES:
+        raise ValueError(f"loss_type must be one of {LM_LOSS_TYPES}, got {loss_type!r}")
+    if not isinstance(max_iters, int) or max_iters < 0:
+        raise ValueError(f"max_iters must be a non-negative int, got {max_iters!r}")
+    _check_tensor(x0, "x0", torch.float32, (None, 9), "(V, 9)")
+    V = x0.shape[0]
+    _check_tensor(vox, "vox", torch.float32, (V, None, 3), "(V, K, 3)")
+    K = vox.shape[1]
+    _check_tensor(img, "img", torch.float32, (V, K, 2), "(V, K, 2)")
+    _check_tensor(mask, "mask", torch.float32, (V, K), "(V, K)")
+    _check_tensor(lo, "lo", torch.float32, (V, 9), "(V, 9)")
+    _check_tensor(hi, "hi", torch.float32, (V, 9), "(V, 9)")
+    dev = _on_one_card(x0=x0, vox=vox, img=img, mask=mask, lo=lo, hi=hi)
+    if V >= 1 << 31 or K >= 1 << 28:
+        raise ValueError(f"{V} fits of {K} keypoints: too many for one launch")
+    x = torch.empty((V, 9), dtype=torch.float32, device=dev)
+    loss = torch.empty((V,), dtype=torch.float32, device=dev)
+    steps = torch.empty((V,), dtype=torch.int32, device=dev)
+    if V == 0:
+        return x, loss, steps
+    lib = load_extension()
+    with torch.cuda.device(dev):
+        err = lib.pbr3d_lm_fit(x0.data_ptr(), vox.data_ptr(), img.data_ptr(), mask.data_ptr(), lo.data_ptr(),
+                               hi.data_ptr(), V, K, int(loss_type == "L1"), max_iters, _ISCLOSE_TOL,
+                               x.data_ptr(), loss.data_ptr(), steps.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "lm_fit launch")
+    lm_fit_kernel.launches += 1
+    return x, loss, steps
+
+
+lm_fit_kernel.launches = 0
+
+#: Forward-mode AD keeps one dual level for the whole process, and a second
+#: thread that enters it raises "Nested forward mode AD is not supported":
+#: concurrent fits on CPU tensors (``run_all``'s preparation pool) take
+#: turns.  Only the plain version takes it; the kernel needs no AD.
+_FORWARD_AD_LOCK = threading.Lock()
+
+
+def lm_fit_plain(x0: torch.Tensor, vox: torch.Tensor, img: torch.Tensor, mask: torch.Tensor,
+                 lo: torch.Tensor, hi: torch.Tensor, loss_type: str = "L2", max_iters: int = 200):
+    """Plain PyTorch version of :func:`lm_fit_kernel`, on any device: the
+    port's forward-AD fit of the JAX package's ``_lm_fit``, the V fits side
+    by side.
+
+    The JAX package loops ``while it < max_iters and |delta| > 1e-10``.
+    Here all ``max_iters`` steps run, and a step taken once ``|delta|`` has
+    fallen to 1e-10 (or is NaN) changes nothing, so the state freezes where
+    the JAX loop would have stopped, with no host sync per step; ``steps``
+    counts the live ones.
+
+    The Jacobian is forward-mode AD, as ``jax.jacfwd``: one dual evaluation
+    of the residuals at 9 copies of each x whose tangents are the unit
+    vectors (the projection takes a camera batch), so a step costs two
+    batched residual evaluations and no per-direction loop."""
+    import torch.autograd.forward_ad as fwAD
+
+    if loss_type not in LM_LOSS_TYPES:
+        raise ValueError(f"loss_type must be one of {LM_LOSS_TYPES}, got {loss_type!r}")
+    V = x0.shape[0]
+
+    def residuals(x, vox, img, mask):  # (V, B, 9) -> (V, B, R)
+        u, v, _ = project_points(vox[:, None], x[..., 0:3], x[..., 3:6], x[..., 6], x[..., 7], x[..., 8])
+        r = (torch.stack([u, v], dim=-1) - img[:, None]) * mask[:, None, :, None]
+        if loss_type == "L1":
+            # Smooth |r| so the Jacobian exists everywhere.
+            r = torch.sqrt(r * r + 1e-12) * mask[:, None, :, None]
+        return r.reshape(*x.shape[:2], -1)
+
+    def loss(x):  # (V, B, 9) -> (V, B)
+        r = residuals(x, vox, img, mask)
+        return (r * r).sum(dim=-1) if loss_type == "L2" else r.abs().sum(dim=-1)
+
+    eye = torch.eye(9, dtype=torch.float32, device=x0.device)
+    x = x0
+    lam = torch.full((V,), 1e-3, dtype=torch.float32, device=x0.device)
+    dn = torch.ones((V,), dtype=torch.float32, device=x0.device)
+    steps = torch.zeros((V,), dtype=torch.int32, device=x0.device)
+    with _FORWARD_AD_LOCK, fwAD.dual_level():
+        # The keypoints enter as duals with zero tangents: forward AD of an
+        # op that mixes dual and plain operands takes a slow decomposition.
+        consts = [fwAD.make_dual(t, torch.zeros_like(t)) for t in (vox, img, mask)]
+        for _ in range(max_iters):
+            active = dn > 1e-10
+            r = residuals(fwAD.make_dual(x[:, None].expand(V, 9, 9).clone(), eye.expand(V, 9, 9)), *consts)
+            if loss_type == "L1":
+                # LM on the squared residuals: for L1 they are sqrt(|r|), so
+                # LM minimises Σ|r| via IRLS.
+                r = torch.sqrt(r.abs() + 1e-12)
+            out = fwAD.unpack_dual(r)
+            r, J = out.primal[:, 0], out.tangent.transpose(1, 2)  # (V, R), (V, R, 9)
+            JtJ = (J[:, :, :, None] * J[:, :, None, :]).sum(dim=1)
+            g = (J * r[:, :, None]).sum(dim=1)
+            delta = torch.linalg.solve_ex(JtJ + lam[:, None, None] * eye, -g)[0]
+            x_new = torch.clamp(x + delta, lo, hi)
+            l_new, l_old = loss(torch.stack([x_new, x], dim=1)).unbind(1)
+            better = l_new < l_old
+            lam_new = torch.clamp(torch.where(better, lam * 0.5, lam * 4.0), 1e-8, 1e12)
+            x = torch.where((active & better)[:, None], x_new, x)
+            lam = torch.where(active, lam_new, lam)
+            dn = torch.where(active, torch.sqrt((delta * delta).sum(dim=1)), dn)
+            steps += active.to(torch.int32)
+    return x, loss(x[:, None])[:, 0], steps
+
+
+def _part_ids(part_ids) -> list:
+    ids = [int(i) for i in np.asarray(part_ids).reshape(-1)]
+    if not 1 <= len(ids) <= SPLAT_IOU_MAX_PARTS or not all(0 <= i < 256 for i in ids):
+        raise ValueError(f"part_ids must be 1..{SPLAT_IOU_MAX_PARTS} uint8 labels, got {ids}")
+    return ids
+
+
+def splat_iou_kernel(cams: torch.Tensor, pts: torch.Tensor, labels: torch.Tensor, valid, gt: torch.Tensor,
+                     part_ids: Sequence[int], hw=None) -> torch.Tensor:
+    """Mean part IoU (V, P) float32 of P cameras ``cams`` (V, P, 9) per view:
+    the splat of the view's points ``pts`` (V, N, 3) float32 with ``labels``
+    (V, N) uint8 (the last point wins a pixel; ``valid`` (V, N) bool or None
+    masks padding) against the view's ground truth ``gt`` (V, H, W) uint8,
+    per part of ``part_ids``; ``hw`` (V, 2) int32 is each view's true
+    (Ht, Wt) inside the (H, W) allocation, or None.  Contiguous CUDA tensors
+    on one device; the function of :func:`splat_iou_plain`.  A memset and
+    three launches on the current stream, no synchronisation; the int32
+    scratch (a plane per camera and the counts) is allocated here."""
+    ids = _part_ids(part_ids)
+    _check_tensor(cams, "cams", torch.float32, (None, None, 9), "(V, P, 9)")
+    V, P = cams.shape[:2]
+    _check_tensor(pts, "pts", torch.float32, (V, None, 3), "(V, N, 3)")
+    N = pts.shape[1]
+    _check_tensor(labels, "labels", torch.uint8, (V, N), "(V, N)")
+    if valid is not None:
+        _check_tensor(valid, "valid", torch.bool, (V, N), "(V, N)")
+    _check_tensor(gt, "gt", torch.uint8, (V, None, None), "(V, H, W)")
+    H, W = gt.shape[1:]
+    if hw is not None:
+        _check_tensor(hw, "hw", torch.int32, (V, 2), "(V, 2)")
+    dev = _on_one_card(cams=cams, pts=pts, labels=labels, valid=valid, gt=gt, hw=hw)
+    if V > 65535 or P > 65535 or N >= (1 << 31) - 1 or H * W >= 1 << 31 or H * W == 0:
+        raise ValueError(f"{V} views x {P} cameras x {N} points on {H} x {W}: outside the kernel's grid")
+    out = torch.empty((V, P), dtype=torch.float32, device=dev)
+    if V == 0 or P == 0:
+        return out
+    lib = load_extension()
+    scratch = torch.empty((V * P * (H * W + 2 * len(ids)),), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.pbr3d_splat_iou(
+            cams.data_ptr(), pts.data_ptr(), labels.data_ptr(), None if valid is None else valid.data_ptr(),
+            None if hw is None else hw.data_ptr(), gt.data_ptr(), (_I32 * len(ids))(*ids), len(ids), V, P, N,
+            H, W, _ISCLOSE_TOL, scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "splat_iou launch")
+    splat_iou_kernel.launches += 1
+    return out
+
+
+splat_iou_kernel.launches = 0
+
+
+def splat_iou_plain(cams: torch.Tensor, pts: torch.Tensor, labels: torch.Tensor, valid, gt: torch.Tensor,
+                    part_ids: Sequence[int], hw=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`splat_iou_kernel`, on any device: the
+    route the kernel replaces, ``projection.splat_labels`` (its int64 keys,
+    last point wins) with the views' points against their P cameras, then
+    ``projection.partwise_iou``'s mean."""
+    V = cams.shape[0]
+    H, W = gt.shape[-2:]
+    true_hw = None if hw is None else (hw[:, 0].view(V, 1, 1), hw[:, 1].view(V, 1, 1))
+    img = splat_labels(pts[:, None], labels[:, None], None if valid is None else valid[:, None],
+                       cams[..., 0:3], cams[..., 3:6], cams[..., 6], cams[..., 7], cams[..., 8], H, W, true_hw)
+    return partwise_iou(img, gt[:, None], part_ids)[1]
