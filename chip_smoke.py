@@ -1297,11 +1297,10 @@ def _unequal(ours: np.ndarray, ref: np.ndarray):
 
 
 def _prof_totals(text: str) -> dict:
-    """Seconds and count per ``[prof]`` phase, per-part names folded."""
+    """Seconds and count per ``[prof] <name>[<attrs>]: T s`` span name, the
+    attributes (part, sweep ...) folded."""
     out: dict = {}
-    for name, secs in re.findall(r"\[prof\] (\S+): ([\d.]+)s", text):
-        name = re.sub(r"^opd\.[^.]+\.", "opd.", name)
-        name = re.sub(r"^(refine_parts\.(search|resweep\d+))\..*", r"\1", name)
+    for name, secs in re.findall(r"\[prof\] ([^\s\[:]+)(?:\[[^\]]*\])?: ([\d.]+)s", text):
         s, n = out.get(name, (0.0, 0))
         out[name] = (s + float(secs), n + 1)
     return out
@@ -1403,7 +1402,7 @@ def phase_stage3(fx3, fx2, grid: np.ndarray, device: str = "cuda") -> None:
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         with mock.patch.object(verify, "_nb4_state", nb4_recorded), \
-                mock.patch.object(profiling, "PROFILE", True), contextlib.redirect_stderr(err_text):
+                profiling.printing(), contextlib.redirect_stderr(err_text):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             deforms, deformed = body(tmp)
@@ -1685,16 +1684,19 @@ def _sha256_counts(grid: np.ndarray):
 
 
 def _study_prof(text: str) -> dict:
-    """Seconds and count per ``[prof]`` phase of a study run: the stage-1 and
-    stage-2 phases by name, the preparation's with monument and view folded,
-    each monument's stage 3 as the sum of its chains."""
+    """Seconds and count per ``[prof] <name>[<attrs>]: T s`` span of a study
+    run: the stage-1 and stage-2 spans by name (the preparation's with
+    monument and view folded), each monument's stage-3 spans by monument
+    (``stage3.<monument>.refine_parts`` the sum of its chains); the spans
+    inside a stage-3 body that carry no monument are left out."""
     out: dict = {}
-    for name, secs in re.findall(r"\[prof\] (\S+): ([\d.]+)s", text):
-        if name.startswith("prep."):
-            name = "stage2.prep." + name.split(".")[-1]
-        elif re.match(r"stage3\.\w+\.refine_parts", name):
-            name = ".".join(name.split(".")[:2]) + ".refine_parts"
-        elif not name.startswith(("stage1.", "stage2.", "stage3.")):
+    for name, attrs, secs in re.findall(r"\[prof\] ([^\s\[:]+)(?:\[([^\]]*)\])?: ([\d.]+)s", text):
+        if name.startswith("stage3."):
+            monument = dict(kv.split("=", 1) for kv in attrs.split(",") if "=" in kv).get("monument")
+            if monument is None:
+                continue
+            name = f"stage3.{monument}.{name[len('stage3.'):]}"
+        elif not name.startswith(("stage1.", "stage2.")):
             continue
         s, n = out.get(name, (0.0, 0))
         out[name] = (s + float(secs), n + 1)
@@ -1744,7 +1746,7 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
     launches0 = min_dist2_kernel.launches
     with tempfile.TemporaryDirectory() as tmp:
         with mock.patch.object(pipeline, "refine_cameras_batched", recording_search), \
-                mock.patch.object(profiling, "PROFILE", True), contextlib.redirect_stderr(err_text):
+                profiling.printing(), contextlib.redirect_stderr(err_text):
             torch.cuda.synchronize()
             _zero_stage2_launches()
             t0 = time.perf_counter()
@@ -1755,7 +1757,7 @@ def phase_study(fxs, tag: str, card: str, bibi_front_floor=None, device: str = "
         peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
         text = err_text.getvalue()
         check(list(results) == monuments, f"study {tag}: results for {list(results)}")
-        log(f"study {tag} {where}: run_all first call wall_s={first:.3f} (with [prof] fences and artifacts) "
+        log(f"study {tag} {where}: run_all first call wall_s={first:.3f} (with [prof] and artifacts) "
             f"peak_mem_bytes={peak} peak_reserved_bytes={reserved} "
             f"min_dist2 launches={min_dist2_kernel.launches - launches0} stage-2 kernel launches={counted}")
         if device == "cuda":

@@ -40,7 +40,7 @@ from pbr3d_torch import config
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.ops.carve import _stacked_plans, sweep_scan
 from pbr3d_torch.ops.components import _host_component_stats, _host_scipy_label
-from pbr3d_torch.utils.profiling import prof
+from pbr3d_torch.utils import profiling
 from pbr3d_torch.utils.streams import adopt, worker_stream
 
 #: Bytes alive per plane element at the peak of the stacked global + group
@@ -132,17 +132,17 @@ def _collect_guided_jobs(
         mask2d = exterior_labels == target
         if not mask2d.any():
             continue
-        with prof(f"gcj.{part}.eqbbox", sync=False):
+        with profiling.span("stage1.part.eqbbox", part=part):
             occ = grid_host == target
             bb = _bbox3(occ)
         if bb is None:
             continue
         (X0, X1), (Y0, Y1), (Z0, Z1) = bb
-        with prof(f"gcj.{part}.label", sync=False):
+        with profiling.span("stage1.part.label", part=part):
             comp_c, n = _host_scipy_label(occ[X0:X1, Y0:Y1, Z0:Z1], "face")
         if n == 0:
             continue
-        with prof(f"gcj.{part}.stats", sync=False):
+        with profiling.span("stage1.part.stats", part=part):
             stats = _host_component_stats(comp_c, n, centroid_axes=())
         for i in range(1, n + 1):
             if stats["count"][i] == 0:
@@ -315,22 +315,22 @@ def recolor_back_host(
     ties to the lower component id) become ``new_part_name``.  Labeling runs
     on the part's occupied bbox only (identical components, numbered in the
     same raster order)."""
-    with prof("rbh.copy", sync=False):
+    with profiling.span("stage1.host_label.copy"):
         if not g.flags.writeable:
             g = g.copy()
     pid = PART_IDS[part_name]
     new_pid = PART_IDS[new_part_name]
-    with prof("rbh.eqbbox", sync=False):
+    with profiling.span("stage1.host_label.eqbbox"):
         occ = g == pid
         bb = _bbox3(occ)
     if bb is None:
         return g
     (X0, X1), (Y0, Y1), (Z0, Z1) = bb
-    with prof("rbh.label", sync=False):
+    with profiling.span("stage1.host_label.label"):
         comp, n = _host_scipy_label(occ[X0:X1, Y0:Y1, Z0:Z1], "face")
     if n <= k:
         return g
-    with prof("rbh.stats", sync=False):
+    with profiling.span("stage1.host_label.stats"):
         stats = _host_component_stats(comp, n, centroid_axes=(sort_axis,))
     # crop-frame centroids: the constant bbox offset does not change the
     # front-most ranking along sort_axis
@@ -390,18 +390,18 @@ def _finish_scene(grid: torch.Tensor, mask_set, preset: config.CarvePreset) -> n
     (W, H, D), which may come from another thread's stream; returns the host
     grid, reoriented and recoloured."""
     adopt(grid)
-    with prof("stage1.guided"):
+    with profiling.span("stage1.guided"):
         grid = guided_carve_all(grid, mask_set.exterior_labels, preset.part_symmetry)
     jobs = _preset_sweeps(preset)[1]
     if jobs:
         sem_wh = torch.from_numpy(np.ascontiguousarray(mask_set.semantic_labels.T)).to(grid.device)
-        with prof("stage1.extrude"):
+        with profiling.span("stage1.extrude"):
             grid = _extrude_all(grid, sem_wh, jobs)
     if not preset.recolor_back_minarets:
         return grid.cpu().numpy()
-    with prof("stage1.download_reorient"):
+    with profiling.span("stage1.download_reorient"):
         host = reorient(grid).cpu().numpy()
-    with prof("stage1.recolor", sync=False):
+    with profiling.span("stage1.recolor"):
         return recolor_back_host(host)
 
 
@@ -415,7 +415,7 @@ def carve_monument_fused(
     grid as host numpy, true extent, reoriented frame — identical to
     ``pbr3d.carving.fused.carve_monument_fused``."""
     group_ids = _preset_sweeps(preset)[0]
-    with prof("stage1.sweep"):
+    with profiling.span("stage1.sweep"):
         grid, = _global_and_part_carve([mask_set], preset.global_angle_interval, group_ids, device)
     return _finish_scene(grid, mask_set, preset)
 
@@ -465,7 +465,7 @@ def carve_monuments_batched(
     sets = [mask_sets[m] for m in names]
     workers = 2
     if _sweep_working_set(sets) <= mem_budget_bytes:
-        with prof("stage1.sweep"):
+        with profiling.span("stage1.sweep"):
             grids = _global_and_part_carve(sets, preset.global_angle_interval, group_ids, device)
         tasks = [lambda g=g, ms=ms: _finish_scene(g, ms, preset) for g, ms in zip(grids, sets)]
         del grids
@@ -482,7 +482,7 @@ def carve_monuments_batched(
 
     out = {}
     with ThreadPoolExecutor(max_workers=min(workers, len(names))) as ex:
-        futs = [ex.submit(run, task) for task in tasks]
+        futs = [ex.submit(profiling.carried(run), task) for task in tasks]
         del tasks
         try:
             for m, fut in zip(names, futs):

@@ -52,7 +52,7 @@ from pbr3d_torch.ops.projection import (
     splat_labels,
     zbuffer_soa,
 )
-from pbr3d_torch.utils.profiling import prof
+from pbr3d_torch.utils import profiling
 
 IDENTITY_DEFORM = np.array([1.0, 0.0, 1.0, 0.0], np.float32)  # sy, dy, sxz, dxz
 
@@ -221,6 +221,7 @@ def all_part_zbuffers(
     ids = [config.PART_IDS[p] for p in parts]
     zbs = _pad_planes(partwise_zbuffers(pts, labels, None, *_cam(cv), ids, H, W),
                       *_pad_plane_hw(H, W)).cpu().numpy()
+    profiling.count("stage3.round_trips")
     return {p: zbs[i] for i, p in enumerate(parts)}
 
 
@@ -249,6 +250,7 @@ def _eval_chunked(deforms: np.ndarray, chunk_cap: int, fn=None, approx=False,
     dev = kw["coords"].device
     d = torch.as_tensor(np.asarray(deforms, np.float32), device=dev)
     outs = [fn(d[i:i + chunk], approx=approx, **kw) for i in range(0, P, chunk)]
+    profiling.count("stage3.round_trips")
     return torch.cat(outs).cpu().numpy()
 
 
@@ -339,6 +341,7 @@ def optimize_part_deform(
         )
 
     def zb_full(deform):
+        profiling.count("stage3.round_trips")
         return deformed_zbuffer(torch.as_tensor(np.asarray(deform, np.float32), device=device),
                                 p_f, cam_vec, image_hw, voxel_shape, center).cpu().numpy()
 
@@ -397,13 +400,13 @@ def optimize_part_deform(
             [base0 + np.array([a, b, 0.0, 0.0], np.float32)
              for a, b in itertools.product(rs_, rd_)], np.float32)
         ca = with_seeds(np.concatenate([IDENTITY_DEFORM[None], base0[None], ca]))
-        with prof(f"opd.{part}.windowA", sync=False):
+        with profiling.span("stage3.opd.windowA", part=part):
             best = pick(ca, ev(ca, p_sc, True))
         cb = np.array(
             [best + np.array([0.0, 0.0, a, b], np.float32)
              for a, b in itertools.product(rs_, rd_)], np.float32)
         cb = with_seeds(np.concatenate([IDENTITY_DEFORM[None], best[None], cb]))
-        with prof(f"opd.{part}.windowB", sync=False):
+        with profiling.span("stage3.opd.windowB", part=part):
             best = pick(cb, ev(cb, p_sc, True))
     elif mode == "full":  # diagnostic: the full 4-D cross product
         coarse = np.array(
@@ -420,7 +423,7 @@ def optimize_part_deform(
             np.float32,
         )
         ca = with_seeds(np.concatenate([IDENTITY_DEFORM[None], ca]))
-        with prof(f"opd.{part}.coarseA", sync=False):
+        with profiling.span("stage3.opd.coarseA", part=part):
             best = pick(ca, ev(ca, p_sc, True))
         # stage B: (scale_xz, shift_xz) given the best y
         cb = np.array(
@@ -429,7 +432,7 @@ def optimize_part_deform(
             np.float32,
         )
         cb = with_seeds(np.concatenate([best[None], cb]))
-        with prof(f"opd.{part}.coarseB", sync=False):
+        with profiling.span("stage3.opd.coarseB", part=part):
             vb = ev(cb, p_sc, True)
         best = pick(cb, vb)
         if seeds is not None:
@@ -452,7 +455,7 @@ def optimize_part_deform(
                              a[None].astype(np.float32) + joffs])
              for a in anchors])
         joint = with_seeds(joint)
-        with prof(f"opd.{part}.joint", sync=False):
+        with profiling.span("stage3.opd.joint", part=part):
             best = pick(joint, ev(joint, p_sc, True))
 
     # local refinement rounds around the coarse optimum: approx at +-step/2,
@@ -469,7 +472,7 @@ def optimize_part_deform(
             np.float32,
         )
         fine = with_seeds(np.concatenate([best[None], fine]))
-        with prof(f"opd.{part}.refine_approx{int(approx)}", sync=False):
+        with profiling.span("stage3.opd.refine", part=part, approx=approx):
             if not approx and len(fine) > exact_topk > 0:
                 # exact-evaluate only the approx objective's leaders + the
                 # incumbent (row 0)
@@ -502,7 +505,7 @@ def optimize_part_deform(
         iou_inc = _visible_iou_from_zb(_zb_incumbent, rest, gt_p)
         return _finish((np.asarray(best, np.float32), float(iou_inc)),
                        _zb_incumbent)
-    with prof(f"opd.{part}.accept_zb", sync=False):
+    with profiling.span("stage3.opd.accept_zb", part=part):
         zb_best = zb_full(best)
     iou_best = _visible_iou_from_zb(zb_best, rest, gt_p)
     score_best, score_id = iou_best, iou_id
@@ -662,13 +665,14 @@ def refine_parts(
         # state lives in its own `state`/`zbs` dicts
         part_sets, centers = dict(part_sets_in), dict(centers_in)
     else:
-        with prof("refine_parts.part_sets", sync=False):
+        with profiling.span("stage3.part_sets"):
             part_sets, centers = _part_sets(table, parts)
 
     if part_sets_out is not None:
         part_sets_out.update({p: part_sets[p][0] for p in parts})
 
     def zb_at(p: str, deform: np.ndarray) -> np.ndarray:
+        profiling.count("stage3.round_trips")
         return deformed_zbuffer(
             torch.as_tensor(np.asarray(deform, np.float32), device=device),
             part_sets[p][0], cam_vec, (H, W), voxel_shape, centers[p],
@@ -681,7 +685,7 @@ def refine_parts(
         # identity deform + the 7-jitter rounding reproduce the integer
         # coordinates, so the direct projection is deformed_zbuffer at
         # identity
-        with prof("refine_parts.identity_zbufs"):
+        with profiling.span("stage3.identity_zbufs"):
             zb_identity = all_part_zbuffers(table.coords, table.labels,
                                             params_to_vector(cam), parts, (H, W))
     if zb_identity_out is not None:
@@ -768,6 +772,7 @@ def refine_parts(
         return b"".join(state[q].tobytes() for q in parts if q != p)
 
     centers_np = {p: centers[p].cpu().numpy() for p in parts}
+    profiling.count("stage3.round_trips", len(parts))
     py_ratio = float(voxel_shape[1]) / float(H)
 
     def _seeds_for(p: str):
@@ -828,7 +833,7 @@ def refine_parts(
         if i < prefix_idx:
             continue
         env_at_search[p] = env_sig(p)
-        with prof(f"refine_parts.search.{p}"):
+        with profiling.span("stage3.part_search", part=p):
             deform, _, zb_new = search_part(p, gain_w=first_gain_w, dual_out=dual_out)
             if (pass0_snapshot_out is not None and dual_out is not None
                     and dual_out["diverged"]
@@ -859,7 +864,7 @@ def refine_parts(
             break
         for p in stale:
             env_at_search[p] = env_sig(p)
-            with prof(f"refine_parts.resweep{sweep}.{p}"):
+            with profiling.span("stage3.resweep", part=p, sweep=sweep):
                 deform, _, zb_new = search_part(
                     p, gain_w=1.0, incumbent=state[p], window=resweep_window)
                 if np.array_equal(deform, state[p]):

@@ -35,7 +35,7 @@ from pbr3d_torch.deform.search import (
     _visible_iou_from_zb,
 )
 from pbr3d_torch.ops.projection import partwise_zbuffers_grid
-from pbr3d_torch.utils.profiling import prof
+from pbr3d_torch.utils import profiling
 
 #: The nb4 table's searched-part rows (eval_helpers_intra.py:564).
 NB4_PARTS = ("dome", "chhatris", "main_door", "windows", "plinth")
@@ -49,6 +49,7 @@ def _part_zbufs_grid(grid, cam: Dict, H: int, W: int, parts, *, device) -> Dict[
     ids = [config.PART_IDS[p] for p in parts]
     zbs = _pad_planes(partwise_zbuffers_grid(g, cam_vec, ids, H, W),
                       *_pad_plane_hw(H, W)).cpu().numpy()
+    profiling.count("stage3.round_trips")
     return {p: zbs[i] for i, p in enumerate(parts)}
 
 
@@ -110,6 +111,7 @@ def _present_parts(grid, device) -> list:
     """The grid's part names, in ``config.PART_NAMES`` order (device
     ``torch.unique``)."""
     ids = set(torch.unique(torch.as_tensor(grid, device=device)).cpu().tolist())
+    profiling.count("stage3.round_trips")
     return [p for p in config.PART_NAMES if p != "background" and config.PART_IDS[p] in ids]
 
 
@@ -140,12 +142,12 @@ def _nb4_state(
     ):
         zb_i = None  # incompatible precompute: take the dense pass
     if zb_i is None:
-        with prof("verify.zb_init", sync=False):
+        with profiling.span("stage3.verify.zb_init"):
             zb_i = _part_zbufs_grid(grid_init, cam, H, W, parts, device=device)
     # parts overwritten in the rebuilt grid have an empty (inf) z-buffer
-    with prof("verify.zb_def", sync=False):
+    with profiling.span("stage3.verify.zb_def"):
         zb_d = _part_zbufs_grid(grid_def, cam, H, W, parts, device=device)
-    with prof("verify.rows", sync=False):
+    with profiling.span("stage3.verify.rows"):
         cells = _rows_from_state(zb_i, zb_d, gt_planes, parts, mask_p)
     return cells, zb_i, zb_d, gt_planes, parts, mask_p
 
@@ -195,9 +197,9 @@ def enforce_no_regression(
     if first_state is not None:
         cells, zb_i, zb_d, gt_planes, parts, mask_p, grid_def = first_state
     else:
-        with prof("verify.build", sync=False):
+        with profiling.span("stage3.verify.build"):
             grid_def = build_fn(vecs())
-        with prof("verify.nb4_state", sync=False):
+        with profiling.span("stage3.verify.nb4_state"):
             cells, zb_i, zb_d, gt_planes, parts, mask_p = _nb4_state(
                 grid_init, grid_def, mask_nb4, cam, zb_i=zb_i, parts=parts,
                 device=device,

@@ -34,6 +34,7 @@ from pbr3d_torch.io.artifacts import load_voxel_grid_labels
 from pbr3d_torch.io.pointcloud import load_obj, load_ply, sample_mesh_surface
 from pbr3d_torch.ops.isosurface import cross_rows
 from pbr3d_torch.ops.neighbors import knn
+from pbr3d_torch.utils import profiling
 
 
 def _f64(points, device) -> torch.Tensor:
@@ -226,37 +227,47 @@ def build_taj_clouds(
     point clouds on ``device``; keys follow the reference: "Sparse", "Dense
     (Cropped)", "Completed (ICP Aligned)", "Carved Grid", "Synthetic".
     ``triples`` is handed to :func:`segment_plane`."""
-    root = Path(root)
-    out: Dict[str, torch.Tensor] = {}
+    with profiling.trace("clouds"):
+        root = Path(root)
+        out: Dict[str, torch.Tensor] = {}
 
-    sparse = load_ply(root / sparse_ply)["points"]
-    plane, _ = segment_plane(sparse, 0.01, 1000, seed, triples, device=device)
-    sparse = align_plane_to_z(sparse, plane, device=device)
-    out["Sparse"] = sparse
+        sparse = load_ply(root / sparse_ply)["points"]
+        with profiling.span("clouds.plane_fit"):
+            plane, _ = segment_plane(sparse, 0.01, 1000, seed, triples, device=device)
+        with profiling.span("clouds.align"):
+            sparse = align_plane_to_z(sparse, plane, device=device)
+        out["Sparse"] = sparse
 
-    if (root / dense_ply).exists():
-        dense = _f64(load_ply(root / dense_ply)["points"], device)
-        lo, hi = sparse.amin(0), sparse.amax(0)
-        dense = dense[((dense >= lo) & (dense <= hi)).all(dim=1)]
-        out["Dense (Cropped)"] = align_plane_to_z(dense, plane, device=device)
+        if (root / dense_ply).exists():
+            dense = _f64(load_ply(root / dense_ply)["points"], device)
+            lo, hi = sparse.amin(0), sparse.amax(0)
+            dense = dense[((dense >= lo) & (dense <= hi)).all(dim=1)]
+            with profiling.span("clouds.align"):
+                out["Dense (Cropped)"] = align_plane_to_z(dense, plane, device=device)
 
-    # 4-way symmetric completion + ordered ICP (L->F, R->F, B->L)
-    sides = symmetric_completion(sparse, device=device)
-    left, _ = icp_point_to_point(sides["left"], sides["front"], 0.05, device=device)
-    right, _ = icp_point_to_point(sides["right"], sides["front"], 0.05, device=device)
-    back, _ = icp_point_to_point(sides["back"], left, 0.05, device=device)
-    out["Completed (ICP Aligned)"] = torch.cat([sides["front"], back, left, right])
+        # 4-way symmetric completion + ordered ICP (L->F, R->F, B->L)
+        with profiling.span("clouds.complete"):
+            sides = symmetric_completion(sparse, device=device)
+        with profiling.span("clouds.icp", side="left"):
+            left, _ = icp_point_to_point(sides["left"], sides["front"], 0.05, device=device)
+        with profiling.span("clouds.icp", side="right"):
+            right, _ = icp_point_to_point(sides["right"], sides["front"], 0.05, device=device)
+        with profiling.span("clouds.icp", side="back"):
+            back, _ = icp_point_to_point(sides["back"], left, 0.05, device=device)
+        out["Completed (ICP Aligned)"] = torch.cat([sides["front"], back, left, right])
 
-    if (root / voxel_npz).exists():
-        grid = torch.as_tensor(load_voxel_grid_labels(root / voxel_npz), device=device)
-        d0, d1, d2 = torch.nonzero(grid > 0, as_tuple=True)
-        out["Carved Grid"] = torch.stack([d2, d1, d0], 1).to(torch.float64)
+        if (root / voxel_npz).exists():
+            grid = torch.as_tensor(load_voxel_grid_labels(root / voxel_npz), device=device)
+            d0, d1, d2 = torch.nonzero(grid > 0, as_tuple=True)
+            out["Carved Grid"] = torch.stack([d2, d1, d0], 1).to(torch.float64)
 
-    if (root / cad_obj).exists():
-        verts, faces = load_obj(root / cad_obj)
-        verts = verts @ CAD_AXIS_SWAP.T
-        pts = sample_mesh_surface(verts, faces, cad_samples, seed)
-        pts = flip_y_axis(pts, device=device)
-        out["Synthetic"] = ground_align_y(pts, out["Completed (ICP Aligned)"], device=device)
+        if (root / cad_obj).exists():
+            verts, faces = load_obj(root / cad_obj)
+            verts = verts @ CAD_AXIS_SWAP.T
+            with profiling.span("clouds.cad_sample"):
+                pts = sample_mesh_surface(verts, faces, cad_samples, seed)
+            pts = flip_y_axis(pts, device=device)
+            with profiling.span("clouds.ground"):
+                out["Synthetic"] = ground_align_y(pts, out["Completed (ICP Aligned)"], device=device)
 
     return out

@@ -20,6 +20,7 @@ from typing import Dict, Mapping
 import numpy as np
 
 from pbr3d_torch.config import labels_to_rgb, rgb_to_labels
+from pbr3d_torch.utils import profiling
 
 
 def save_voxel_grid(path: str | Path, labels: np.ndarray) -> None:
@@ -34,6 +35,7 @@ def load_voxel_grid_rgb(path: str | Path) -> np.ndarray:
     return np.load(path)["voxel_grid"]
 
 
+@profiling.spanned("io.load_voxel_grid")
 def load_voxel_grid_labels(path: str | Path) -> np.ndarray:
     """uint8 (W,H,D) label grid (non-palette colors -> OTHER_ID, none expected)."""
     return rgb_to_labels(load_voxel_grid_rgb(path))

@@ -18,6 +18,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pbr3d_torch.utils import profiling
+
 _PLY_TYPES = {
     "char": "i1", "int8": "i1",
     "uchar": "u1", "uint8": "u1",
@@ -34,6 +36,7 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+@profiling.spanned("io.load_ply")
 def load_ply(path: str | Path) -> Dict[str, np.ndarray]:
     """Load a PLY point cloud.
 
@@ -133,6 +136,7 @@ def save_ply(path: str | Path, points: np.ndarray, colors: Optional[np.ndarray] 
             f.write(rec.tobytes())
 
 
+@profiling.spanned("io.load_obj")
 def load_obj(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
     """Minimal OBJ mesh loader: vertices + triangulated faces."""
     verts, faces = [], []

@@ -57,7 +57,7 @@ from pbr3d_torch.deform.warp import build_deformed_grid_fused
 from pbr3d_torch.io.artifacts import save_camera_params, save_voxel_grid
 from pbr3d_torch.io.masks import MaskSet, load_mask_labels, load_mask_labels_for_grid, prepare_masks
 from pbr3d_torch.ops.point_table import build_point_table
-from pbr3d_torch.utils.profiling import prof
+from pbr3d_torch.utils import profiling
 from pbr3d_torch.utils.streams import worker_stream
 
 ALIGN_PARTS = ("front_minarets", "back_minarets")  # notebook 2 cells 5/9
@@ -183,7 +183,7 @@ def run_stage2_views(
     grid_dev = torch.as_tensor(grid_labels, device=device)
     # The 3D minaret components depend only on the grid: shared by views.
     try:
-        with prof("stage2 minaret labelling (host)"):
+        with profiling.span("stage2.labelling"):
             vox_parts = extract_minaret_voxels_by_label(grid_labels)
     except ValueError:
         vox_parts = None
@@ -202,10 +202,10 @@ def run_stage2_views(
             print(f"[stage2] {monument}/{view} skipped: {e}", file=sys.stderr)
             continue
         init_params[view] = init
-        with prof(f"stage2 {view} keypoint LM"):
+        with profiling.span("stage2.keypoint_lm", view=view):
             kp_params[view] = optimize_camera_with_keypoints(
                 vox_kps, img_kps, mask.shape[:2], init, device=device)
-        with prof(f"stage2 {view} search from kp"):
+        with profiling.span("stage2.search", view=view, start="kp"):
             final_params[view], iou = refine_camera_mask_iou(
                 grid_dev, mask, list(ALIGN_PARTS), kp_params[view], seed=seed, **search)
         if iou < RETRY_IOU_FLOOR[view]:
@@ -213,14 +213,14 @@ def run_stage2_views(
                 kp_params[view], np.asarray(grid_labels).shape, view,
                 mask_hw=mask.shape[:2], grid_labels=grid_dev, mask_labels=mask, device=device,
             ):
-                with prof(f"stage2 {view} search from {tag}"):
+                with profiling.span("stage2.search", view=view, start=tag):
                     p2, iou2 = refine_camera_mask_iou(
                         grid_dev, mask, list(ALIGN_PARTS), init2,
                         seed=seed + 1, step_scale=scale, **search)
                 if iou2 > iou:
                     final_params[view], iou = p2, iou2
         # quarter-step fine polish
-        with prof(f"stage2 {view} polish"):
+        with profiling.span("stage2.polish", view=view):
             p3, iou3 = refine_camera_mask_iou(
                 grid_dev, mask, list(ALIGN_PARTS), final_params[view],
                 seed=seed + 3, step_scale=0.25, **search)
@@ -332,7 +332,7 @@ def run_stage3_body(
         if exact_verify and not any(k in search_kw for k in heavy):
             extra_profiles = [("w", heavy)]
 
-    with prof(f"stage3.{monument}.table"):
+    with profiling.span("stage3.table", monument=monument):
         table = build_point_table(grid_labels, device=device)
     schedule = search_kw.pop("portfolio", (0.0, 1.0))
     if not exact_verify:
@@ -342,13 +342,13 @@ def run_stage3_body(
     all_parts = [p for p in (part_names or
                              [q for q in config.PART_NAMES if q != "background"])
                  if table.count(config.PART_IDS[p]) > 0]
-    with prof(f"stage3.{monument}.shared_prep"):
+    with profiling.span("stage3.shared_prep", monument=monument):
         part_sets, centers_t, zb_identity = prepare_shared_state(
             mask, cam_final_front, all_parts, table)
     part_points = {p: part_sets[p][0] for p in all_parts}
 
     def _run_variant(gw, prof_kw, tag, **chain_kw):
-        with prof(f"stage3.{monument}.refine_parts[{tag}g{gw:g}]"):
+        with profiling.span("stage3.refine_parts", monument=monument, variant=tag, gain_w=gw):
             return refine_parts(
                 grid_labels, mask, cam_final_front, part_names, device=device,
                 overrides=overrides, table=table,
@@ -423,7 +423,7 @@ def run_stage3_body(
 
         pick, pick_state = 0, None
         if len(variants) > 1:
-            with prof(f"stage3.{monument}.portfolio_pick"):
+            with profiling.span("stage3.portfolio_pick", monument=monument):
                 states = [_exact_state(build_fn(_vecs(dd))) for dd in variants]
                 totals = [_total(st[0]) for st in states]
                 pick = int(np.argmax(totals))
@@ -431,7 +431,7 @@ def run_stage3_body(
                 print(f"[stage3] {monument}: portfolio "
                       f"{[f'{l}={t:.3f}' for l, t in zip(labels, totals)]}"
                       f" -> {labels[pick]}", file=sys.stderr)
-        with prof(f"stage3.{monument}.exact_verify"):
+        with profiling.span("stage3.exact_verify", monument=monument):
             before = _dsnap(variants[pick])
             deforms, deformed = verify.enforce_no_regression(
                 grid_labels, variants[pick], mask_nb4, cam_final_front,
@@ -542,40 +542,44 @@ def run_pipeline_body(
     ``grid_stage1`` injects a precomputed stage-1 grid (the multi-scene carve
     of :func:`run_all`); ``stage1_time`` is its share of the batch's wall
     time."""
-    timings = {}
-    t = time.perf_counter()
-    if grid_stage1 is not None:
-        grid1 = grid_stage1
-    else:
-        grid1 = carve_monument_fused(scene.front, device=device)
-    if out_dir is not None:
-        save_voxel_grid(
-            Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{monument}_voxel_grid.npz", grid1)
-    timings["stage1"] = (stage1_time if grid_stage1 is not None and stage1_time is not None
-                         else time.perf_counter() - t)
-    print(f"[{monument}] stage1 {timings['stage1']:.1f}s grid={grid1.shape}",
-          file=sys.stderr, flush=True)
+    with profiling.trace("study", monument=monument):
+        timings = {}
+        t = time.perf_counter()
+        with profiling.span("stage1"):
+            if grid_stage1 is not None:
+                grid1 = grid_stage1
+            else:
+                grid1 = carve_monument_fused(scene.front, device=device)
+            if out_dir is not None:
+                save_voxel_grid(
+                    Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{monument}_voxel_grid.npz", grid1)
+        timings["stage1"] = (stage1_time if grid_stage1 is not None and stage1_time is not None
+                             else time.perf_counter() - t)
+        print(f"[{monument}] stage1 {timings['stage1']:.1f}s grid={grid1.shape}",
+              file=sys.stderr, flush=True)
 
-    t = time.perf_counter()
-    cameras, _ = run_stage2_views(monument, grid1, scene.views, out_dir, device=device,
-                                  **(stage2_kw or {}))
-    timings["stage2"] = time.perf_counter() - t
-    print(f"[{monument}] stage2 {timings['stage2']:.1f}s views={list(cameras['final'])}",
-          file=sys.stderr, flush=True)
+        t = time.perf_counter()
+        with profiling.span("stage2"):
+            cameras, _ = run_stage2_views(monument, grid1, scene.views, out_dir, device=device,
+                                          **(stage2_kw or {}))
+        timings["stage2"] = time.perf_counter() - t
+        print(f"[{monument}] stage2 {timings['stage2']:.1f}s views={list(cameras['final'])}",
+              file=sys.stderr, flush=True)
 
-    t = time.perf_counter()
-    if not cameras["final"]:
-        raise RuntimeError(
-            f"{monument}: no view passed camera estimation (all views skipped); "
-            "cannot run stage 3"
-        )
-    cam_front = cameras["final"].get("front") or next(iter(cameras["final"].values()))
-    deforms, grid3 = run_stage3_body(
-        monument, grid1, scene.views["front"], scene.nb4, cam_front, out_dir, device=device,
-        **(stage3_kw or {}))
-    timings["stage3"] = time.perf_counter() - t
-    print(f"[{monument}] stage3 {timings['stage3']:.1f}s parts={len(deforms)}",
-          file=sys.stderr, flush=True)
+        t = time.perf_counter()
+        if not cameras["final"]:
+            raise RuntimeError(
+                f"{monument}: no view passed camera estimation (all views skipped); "
+                "cannot run stage 3"
+            )
+        cam_front = cameras["final"].get("front") or next(iter(cameras["final"].values()))
+        with profiling.span("stage3.body", monument=monument):
+            deforms, grid3 = run_stage3_body(
+                monument, grid1, scene.views["front"], scene.nb4, cam_front, out_dir, device=device,
+                **(stage3_kw or {}))
+        timings["stage3"] = time.perf_counter() - t
+        print(f"[{monument}] stage3 {timings['stage3']:.1f}s parts={len(deforms)}",
+              file=sys.stderr, flush=True)
     return PipelineResult(monument, grid1, cameras, deforms, grid3, timings)
 
 
@@ -586,30 +590,30 @@ def _prep_stage2_monument(m: str, grid: np.ndarray, views: Mapping[str, np.ndarr
     the ``{init, kp, final}`` cameras (``final`` still empty) and the search
     jobs keyed ``(m, view)``.  Callers overlap monuments on a small pool, so
     this runs on a stream of its own and hands back host data only."""
-    with worker_stream(device):
+    with profiling.span("stage2.prep", monument=m), worker_stream(device):
         grid_dev = torch.as_tensor(grid, device=device)
-        with prof(f"prep.{m}.vox_parts", sync=False):
+        with profiling.span("stage2.prep.vox_parts"):
             try:
                 vox_parts = extract_minaret_voxels_by_label(grid)
             except ValueError:
                 vox_parts = None
-        with prof(f"prep.{m}.shell", sync=False):
+        with profiling.span("stage2.prep.shell"):
             shell = tuple(t.cpu().numpy() for t in
                           surface_points_by_parts(grid_dev, list(ALIGN_PARTS), device=device))
         cams = {"init": {}, "kp": {}, "final": {}}
         mjobs = {}
         for view, mask in views.items():
             try:
-                with prof(f"prep.{m}.{view}.kps", sync=False):
+                with profiling.span("stage2.prep.kps", view=view):
                     vox_kps, img_kps = extract_minaret_kps_for_view(grid, mask, voxel_parts=vox_parts)
-                with prof(f"prep.{m}.{view}.init", sync=False):
+                with profiling.span("stage2.prep.init", view=view):
                     init = auto_compute_initial_params_matching_bbox(
                         grid_dev, mask, list(ALIGN_PARTS), device=device)
             except ValueError as e:
                 print(f"[stage2] {m}/{view} skipped: {e}", file=sys.stderr)
                 continue
             cams["init"][view] = init
-            with prof(f"prep.{m}.{view}.lm", sync=False):
+            with profiling.span("stage2.prep.lm", view=view):
                 kp = optimize_camera_with_keypoints(vox_kps, img_kps, mask.shape[:2], init, device=device)
             cams["kp"][view] = kp
             mjobs[(m, view)] = dict(
@@ -666,19 +670,20 @@ def _stage2_all_batched(
     cameras: Dict[str, Dict[str, Dict[str, Dict]]] = {}
     search = dict(draws=draws, device=device)
 
-    with prof("stage2.prep", sync=False):
+    with profiling.span("stage2.prep_wait"):
         with ThreadPoolExecutor(max_workers=3) as ex:
             futs = dict(prep_futures or {})
             for m in monuments:
                 if m not in futs:
-                    futs[m] = ex.submit(_prep_stage2_monument, m, grids[m], views[m], device=device)
+                    futs[m] = ex.submit(profiling.carried(_prep_stage2_monument), m, grids[m], views[m],
+                                        device=device)
             for m in monuments:
                 cameras[m], mjobs = futs[m].result()
                 jobs.update(mjobs)
     if not jobs:
         return cameras
 
-    with prof("stage2.main_search", sync=False):
+    with profiling.span("stage2.main_search"):
         finals = refine_cameras_batched(
             jobs, generations=generations, population=population, seed=seed, **search)
     retry = {k: jobs[k] for k, (_, iou) in finals.items() if iou < RETRY_IOU_FLOOR[k[1]]}
@@ -707,7 +712,7 @@ def _stage2_all_batched(
                 if view == "front":
                     on_front_final(m, finals[(m, view)][0])
 
-    with prof("stage2.fine_polish", sync=False):
+    with profiling.span("stage2.fine_polish"):
         fine_polish([k for k in finals if k not in retry], 3)
     if not deep_polish:
         # (the deep polish re-searches every view, so with it the front
@@ -727,7 +732,7 @@ def _stage2_all_batched(
                 grid_labels=j["grid_labels"], mask_labels=j["mask_labels"], device=device,
             ):
                 jobs2[(k, tag)] = dict(j, init_params=init, step_scale=scale)
-        with prof(f"stage2.retry_triage.{label}", sync=False):
+        with profiling.span("stage2.retry_triage", label=label):
             coarse = refine_cameras_batched(
                 jobs2, generations=max(6, generations // 2), population=population,
                 seed=seed + 1, polish=False, point_cap=16384, plane_cap=80_000, **search)
@@ -740,13 +745,13 @@ def _stage2_all_batched(
         jobs3 = {(k, tag): dict(jobs2[(k, tag)], init_params=coarse[(k, tag)][0])
                  for k, ranked in by_view.items() for _, tag in sorted(ranked, reverse=True)[:2]}
         jobs4 = {(k, max(ranked)[1]): dict(jobs2[(k, max(ranked)[1])]) for k, ranked in by_view.items()}
-        with prof(f"stage2.retry_polish.{label}", sync=False):
+        with profiling.span("stage2.retry_polish", label=label):
             keep_better(refine_cameras_batched(
                 jobs3, generations=0, population=population, seed=seed + 1, **search), note=True)
             keep_better(refine_cameras_batched(
                 jobs4, generations=generations, population=population, seed=seed + 2, **search),
                 note=True)
-        with prof(f"stage2.fine_polish_retry.{label}", sync=False):
+        with profiling.span("stage2.fine_polish_retry", label=label):
             fine_polish(keys, 4)
 
     if retry:
@@ -764,7 +769,7 @@ def _stage2_all_batched(
 
     if deep_polish:
         def run_trials(ks, label):
-            with prof(f"stage2.deep_polish[{label}]", sync=False):
+            with profiling.span("stage2.deep_polish", label=label):
                 for gens, ss, sd, mags, cdr in DEEP_POLISH_TRIALS:
                     jf = {k: dict(jobs[k], init_params=finals[k][0], step_scale=ss) for k in ks}
                     keep_better(refine_cameras_batched(
@@ -847,128 +852,132 @@ def run_all_body(
     batched phase that fails (or is switched off) gives way to the serial
     route through :func:`run_pipeline_body`; a device fault is raised
     whatever ``strict`` says."""
-    monuments = list(scenes)
+    with profiling.trace("study"):
+        monuments = list(scenes)
 
-    def tolerated(exc: Exception) -> bool:
-        return not (strict or _device_fault(exc))
+        def tolerated(exc: Exception) -> bool:
+            return not (strict or _device_fault(exc))
 
-    prep_ex = ThreadPoolExecutor(max_workers=2)
-    prep_futs: Dict[str, Future] = {}
+        prep_ex = ThreadPoolExecutor(max_workers=2)
+        prep_futs: Dict[str, Future] = {}
 
-    def on_grid_ready(m: str, grid: np.ndarray):
-        prep_futs[m] = prep_ex.submit(_prep_stage2_monument, m, grid, scenes[m].views, device=device)
+        def on_grid_ready(m: str, grid: np.ndarray):
+            prep_futs[m] = prep_ex.submit(profiling.carried(_prep_stage2_monument), m, grid, scenes[m].views,
+                                          device=device)
 
-    grids: Dict[str, np.ndarray] = {}
-    t_share: Optional[float] = None
-    if batch_stage1 and len(monuments) > 1:
-        try:
-            t0 = time.perf_counter()
-            grids = carve_monuments_batched(
-                {m: scenes[m].front for m in monuments}, on_grid=on_grid_ready, device=device)
-            t_share = (time.perf_counter() - t0) / max(len(monuments), 1)
-            print(f"[run_all] batched stage1 x{len(grids)}: {t_share * len(grids):.1f}s",
-                  file=sys.stderr, flush=True)
-        except Exception as e:
-            if not tolerated(e):
-                prep_ex.shutdown(wait=False, cancel_futures=True)
-                raise
-            grids = {}
-            print("[run_all] batched stage1 FAILED, falling back to serial:", file=sys.stderr)
-            traceback.print_exc()
-
-    # The stage-3 pool exists BEFORE stage 2: part refinement depends only on
-    # the front camera, so each monument's stage 3 is submitted the moment
-    # that camera is final, beside the drone views' retry and polish rounds.
-    ex3 = ThreadPoolExecutor(max_workers=max(1, stage3_workers))
-    futs3: Dict[str, Future] = {}
-
-    def stage3_task(m: str, cam_front: Dict):
-        t0 = time.perf_counter()
-        with worker_stream(device):
-            deforms, grid3 = run_stage3_body(
-                m, grids[m], scenes[m].views["front"], scenes[m].nb4, cam_front, out_dir,
-                device=device, **(stage3_kw or {}))
-        t3 = time.perf_counter() - t0
-        print(f"[{m}] stage3 {t3:.1f}s parts={len(deforms)}", file=sys.stderr, flush=True)
-        return deforms, grid3, t3
-
-    def on_front_final(m: str, params: Dict):
-        futs3[m] = ex3.submit(stage3_task, m, params)
-
-    cameras_all: Dict[str, Dict] = {}
-    t2_share: Optional[float] = None
-    if batch_stage2 and len(monuments) > 1 and len(grids) == len(monuments):
-        try:
-            t0 = time.perf_counter()
-            kw2 = dict(stage2_kw or {})
-            kw2.setdefault("deep_polish", max_dim is None or int(max_dim) > 256)
-            cameras_all = _stage2_all_batched(
-                monuments, grids, {m: scenes[m].views for m in monuments}, out_dir,
-                on_front_final=on_front_final, prep_futures=prep_futs, device=device, **kw2)
-            t2_share = (time.perf_counter() - t0) / max(len(monuments), 1)
-            print(f"[run_all] batched stage2 x{len(monuments)}: {t2_share * len(monuments):.1f}s",
-                  file=sys.stderr, flush=True)
-        except Exception as e:
-            prep_ex.shutdown(wait=False, cancel_futures=True)
-            if not tolerated(e):
-                ex3.shutdown(wait=False, cancel_futures=True)
-                raise
-            cameras_all = {}
-            print("[run_all] batched stage2 FAILED, falling back to serial:", file=sys.stderr)
-            traceback.print_exc()
-            # drain any early stage-3 work before the serial route redoes it
-            for f in futs3.values():
-                try:
-                    f.result()
-                except Exception as e3:
-                    if _device_fault(e3):
-                        raise
-            futs3.clear()
-
-    prep_ex.shutdown(wait=False)
-    out: Dict[str, PipelineResult] = {}
-    if not cameras_all:
-        ex3.shutdown(wait=True)
-        for m in monuments:
+        grids: Dict[str, np.ndarray] = {}
+        t_share: Optional[float] = None
+        if batch_stage1 and len(monuments) > 1:
             try:
-                out[m] = run_pipeline_body(
-                    m, scenes[m], out_dir, stage2_kw=stage2_kw, stage3_kw=stage3_kw,
-                    grid_stage1=grids.get(m), stage1_time=t_share, device=device)
+                t0 = time.perf_counter()
+                with profiling.span("stage1"):
+                    grids = carve_monuments_batched(
+                        {m: scenes[m].front for m in monuments}, on_grid=on_grid_ready, device=device)
+                t_share = (time.perf_counter() - t0) / max(len(monuments), 1)
+                print(f"[run_all] batched stage1 x{len(grids)}: {t_share * len(grids):.1f}s",
+                      file=sys.stderr, flush=True)
             except Exception as e:
                 if not tolerated(e):
+                    prep_ex.shutdown(wait=False, cancel_futures=True)
                     raise
-                print(f"[run_all] {m} FAILED:", file=sys.stderr)
+                grids = {}
+                print("[run_all] batched stage1 FAILED, falling back to serial:", file=sys.stderr)
                 traceback.print_exc()
-        return out
 
-    # ---- stage 3: collect the overlapped tasks, submit any stragglers ----
-    # (a monument whose front view was skipped takes another final view,
-    # which is fixed only once stage 2 has returned)
-    for m in monuments:
-        cams = cameras_all.get(m)
-        if m not in futs3 and cams and cams["final"]:
-            cam_front = cams["final"].get("front") or next(iter(cams["final"].values()))
-            futs3[m] = ex3.submit(stage3_task, m, cam_front)
+        # The stage-3 pool exists BEFORE stage 2: part refinement depends only on
+        # the front camera, so each monument's stage 3 is submitted the moment
+        # that camera is final, beside the drone views' retry and polish rounds.
+        ex3 = ThreadPoolExecutor(max_workers=max(1, stage3_workers))
+        futs3: Dict[str, Future] = {}
 
-    for m in monuments:
-        try:
+        def stage3_task(m: str, cam_front: Dict):
+            t0 = time.perf_counter()
+            with profiling.span("stage3.body", monument=m), worker_stream(device):
+                deforms, grid3 = run_stage3_body(
+                    m, grids[m], scenes[m].views["front"], scenes[m].nb4, cam_front, out_dir,
+                    device=device, **(stage3_kw or {}))
+            t3 = time.perf_counter() - t0
+            print(f"[{m}] stage3 {t3:.1f}s parts={len(deforms)}", file=sys.stderr, flush=True)
+            return deforms, grid3, t3
+
+        def on_front_final(m: str, params: Dict):
+            futs3[m] = ex3.submit(profiling.carried(stage3_task, "stage3.queued", monument=m), m, params)
+
+        cameras_all: Dict[str, Dict] = {}
+        t2_share: Optional[float] = None
+        if batch_stage2 and len(monuments) > 1 and len(grids) == len(monuments):
+            try:
+                t0 = time.perf_counter()
+                kw2 = dict(stage2_kw or {})
+                kw2.setdefault("deep_polish", max_dim is None or int(max_dim) > 256)
+                with profiling.span("stage2"):
+                    cameras_all = _stage2_all_batched(
+                        monuments, grids, {m: scenes[m].views for m in monuments}, out_dir,
+                        on_front_final=on_front_final, prep_futures=prep_futs, device=device, **kw2)
+                t2_share = (time.perf_counter() - t0) / max(len(monuments), 1)
+                print(f"[run_all] batched stage2 x{len(monuments)}: {t2_share * len(monuments):.1f}s",
+                      file=sys.stderr, flush=True)
+            except Exception as e:
+                prep_ex.shutdown(wait=False, cancel_futures=True)
+                if not tolerated(e):
+                    ex3.shutdown(wait=False, cancel_futures=True)
+                    raise
+                cameras_all = {}
+                print("[run_all] batched stage2 FAILED, falling back to serial:", file=sys.stderr)
+                traceback.print_exc()
+                # drain any early stage-3 work before the serial route redoes it
+                for f in futs3.values():
+                    try:
+                        f.result()
+                    except Exception as e3:
+                        if _device_fault(e3):
+                            raise
+                futs3.clear()
+
+        prep_ex.shutdown(wait=False)
+        out: Dict[str, PipelineResult] = {}
+        if not cameras_all:
+            ex3.shutdown(wait=True)
+            for m in monuments:
+                try:
+                    out[m] = run_pipeline_body(
+                        m, scenes[m], out_dir, stage2_kw=stage2_kw, stage3_kw=stage3_kw,
+                        grid_stage1=grids.get(m), stage1_time=t_share, device=device)
+                except Exception as e:
+                    if not tolerated(e):
+                        raise
+                    print(f"[run_all] {m} FAILED:", file=sys.stderr)
+                    traceback.print_exc()
+            return out
+
+        # ---- stage 3: collect the overlapped tasks, submit any stragglers ----
+        # (a monument whose front view was skipped takes another final view,
+        # which is fixed only once stage 2 has returned)
+        for m in monuments:
             cams = cameras_all.get(m)
-            if m not in futs3 or not cams or not cams["final"]:
-                raise RuntimeError(f"{m}: no view passed camera estimation (all views skipped)")
-            deforms, grid3, t3 = futs3[m].result()
-            timings = {"stage1": t_share or 0.0, "stage2": t2_share or 0.0, "stage3": t3}
-            out[m] = PipelineResult(m, grids[m], cams, deforms, grid3, timings)
-        except Exception as e:
-            if not tolerated(e):
-                ex3.shutdown(wait=False, cancel_futures=True)
-                raise
-            print(f"[run_all] {m} stage3 FAILED:", file=sys.stderr)
-            traceback.print_exc()
-    ex3.shutdown(wait=True)
+            if m not in futs3 and cams and cams["final"]:
+                cam_front = cams["final"].get("front") or next(iter(cams["final"].values()))
+                on_front_final(m, cam_front)
 
-    if out_dir is not None:
-        for m, r in out.items():
-            save_voxel_grid(
-                Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{m}_voxel_grid.npz",
-                r.grid_stage1)
-    return out
+        for m in monuments:
+            try:
+                cams = cameras_all.get(m)
+                if m not in futs3 or not cams or not cams["final"]:
+                    raise RuntimeError(f"{m}: no view passed camera estimation (all views skipped)")
+                deforms, grid3, t3 = futs3[m].result()
+                timings = {"stage1": t_share or 0.0, "stage2": t2_share or 0.0, "stage3": t3}
+                out[m] = PipelineResult(m, grids[m], cams, deforms, grid3, timings)
+            except Exception as e:
+                if not tolerated(e):
+                    ex3.shutdown(wait=False, cancel_futures=True)
+                    raise
+                print(f"[run_all] {m} stage3 FAILED:", file=sys.stderr)
+                traceback.print_exc()
+        ex3.shutdown(wait=True)
+
+        if out_dir is not None:
+            for m, r in out.items():
+                save_voxel_grid(
+                    Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{m}_voxel_grid.npz",
+                    r.grid_stage1)
+        return out

@@ -59,11 +59,11 @@ def test_grid_ious_match_jax(rng):
         artifacts.voxel_grid_iou(a, b[:-1])
 
 
-def test_prof_prints_only_when_enabled(monkeypatch, capsys):
-    with profiling.prof("off"):
+def test_prof_prints_only_when_enabled(capsys):
+    with profiling.span("off"):
         pass
     assert capsys.readouterr().err == ""
-    monkeypatch.setattr(profiling, "PROFILE", True)
-    with profiling.prof("on"):
-        pass
-    assert capsys.readouterr().err.startswith("[prof] on: ")
+    with profiling.printing():
+        with profiling.span("on", view="front"):
+            pass
+    assert capsys.readouterr().err.startswith("[prof] on[view=front]: ")

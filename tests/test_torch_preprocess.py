@@ -19,6 +19,7 @@ from pbr3d.io import artifacts as jax_artifacts
 from pbr3d.io import pointcloud as jax_pc
 from pbr3d_torch import config
 from pbr3d_torch.eval import preprocess as pre
+from pbr3d_torch.utils import profiling
 
 
 @pytest.fixture
@@ -144,8 +145,15 @@ def test_build_taj_clouds_on_written_files(rng, tmp_path):
         "v 0 0 0\nv 1 0 0\nv 1 0 1\nv 0 0 1\nv 0.5 1 0.5\n"
         "f 1 2 3 4\nf 1 2 5\nf 2 3 5\nf 3 4 5\nf 4 1 5\n")
     triples = np.array(jax.random.randint(jax.random.PRNGKey(0), (1000, 3), 0, len(sparse)))
-    ours = pre.build_taj_clouds(tmp_path, cad_samples=2000, seed=0, triples=triples, device="cpu")
+    with profiling.recording() as spans:
+        ours = pre.build_taj_clouds(tmp_path, cad_samples=2000, seed=0, triples=triples, device="cpu")
     ref = jax_pre.build_taj_clouds(tmp_path, cad_samples=2000, seed=0)
+    (clouds,) = [s for s in spans if s.name == "clouds"]
+    assert clouds.parent is None and {s.trace for s in spans} == {clouds.trace}
+    names = [s.name for s in spans]
+    assert names.count("io.load_ply") == 2 and "io.load_obj" in names and "io.load_voxel_grid" in names
+    assert "clouds.plane_fit" in names
+    assert [s.attrs["side"] for s in spans if s.name == "clouds.icp"] == ["left", "right", "back"]
     assert list(ours) == list(ref) == ["Sparse", "Dense (Cropped)", "Completed (ICP Aligned)", "Carved Grid",
                                       "Synthetic"]
     for k in ref:

@@ -31,6 +31,7 @@ from pbr3d_torch import pipeline as tpipe
 from pbr3d_torch.carving.fused import carve_monument_fused
 from pbr3d_torch.io.artifacts import load_voxel_grid_labels
 from pbr3d_torch.io.masks import MaskSet
+from pbr3d_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
 CAMS = REPO / "results_temp_golden/2.Perspective_Camera_Estimation"
@@ -90,12 +91,19 @@ def jax_keypoint_fit():
 
 
 @pytest.fixture(scope="module")
-def port_run(root, draws, jax_keypoint_fit, tmp_path_factory):
-    """(results, out_dir, stderr-free log of stage-3 starts) of the port's ``run_all``."""
+def recorded_port_run(root, draws, jax_keypoint_fit, tmp_path_factory):
+    """(results, out_dir, the spans recorded) of the port's ``run_all``."""
     out = tmp_path_factory.mktemp("torch")
-    res = tpipe.run_all(MONUMENTS, strict=True, data_root=root, max_dim=128, out_dir=out,
-                        stage2_kw=dict(KW2, draws=draws), stage3_kw=KW3, device="cpu")
-    return res, out
+    with profiling.recording() as spans:
+        res = tpipe.run_all(MONUMENTS, strict=True, data_root=root, max_dim=128, out_dir=out,
+                            stage2_kw=dict(KW2, draws=draws), stage3_kw=KW3, device="cpu")
+    return res, out, spans
+
+
+@pytest.fixture(scope="module")
+def port_run(recorded_port_run):
+    """(results, out_dir) of the port's ``run_all``."""
+    return recorded_port_run[:2]
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +142,35 @@ def test_run_all_ends_at_the_jax_cameras_and_deforms(port_run, jax_run):
     moved = [(m, p) for m in MONUMENTS for p, d in ours[m].deform_params.items()
              if d["deform"]["scale_y"] != 1.0]
     assert len(moved) >= 3, moved  # the runs had real decisions to agree on
+
+
+def test_run_all_records_its_spans_under_one_trace(recorded_port_run):
+    """One study, one stage 1 and one stage 2 a call; each monument waits for
+    and runs its stage-3 body under the call's trace; the stage-3 downloads
+    are counted; the timings still read the stages' walls."""
+    res, _, spans = recorded_port_run
+    named = lambda n: [s for s in spans if s.name == n]  # noqa: E731
+    (study,), (stage1,), (stage2,) = named("study"), named("stage1"), named("stage2")
+    assert study.parent is None and stage1.parent == stage2.parent == study.id
+    assert {s.trace for s in spans} == {study.trace}
+    for n in ("stage3.queued", "stage3.body", "stage2.prep"):
+        assert sorted(s.attrs["monument"] for s in named(n)) == MONUMENTS, n
+    by_id = {s.id: s for s in spans}
+    for body in named("stage3.body"):
+        assert by_id[body.parent].name in ("stage2", "study") and body.tid != study.tid
+        queued = next(q for q in named("stage3.queued") if q.attrs == body.attrs)
+        assert queued.parent == body.parent and queued.end_ns <= body.start_ns
+    for prep in named("stage2.prep"):
+        assert by_id[prep.parent].name.startswith("stage1")
+    assert sum(s.counts.get("stage3.round_trips", 0) for s in spans) > 0
+    # the timings: the batched carve's and stage 2's walls shared evenly, each body's own wall
+    for m in MONUMENTS:
+        t = res[m].timings
+        assert list(t) == ["stage1", "stage2", "stage3"]
+        assert t["stage1"] * len(MONUMENTS) == pytest.approx(stage1.seconds, abs=0.05)
+        assert t["stage2"] * len(MONUMENTS) == pytest.approx(stage2.seconds, abs=0.05)
+        body = next(b for b in named("stage3.body") if b.attrs["monument"] == m)
+        assert t["stage3"] == pytest.approx(body.seconds, abs=0.05)
 
 
 def test_run_all_writes_the_reference_layout(port_run, jax_run):
