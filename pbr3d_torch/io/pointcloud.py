@@ -12,6 +12,7 @@ so both packages sample the same points.
 
 from __future__ import annotations
 
+import io
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -136,9 +137,64 @@ def save_ply(path: str | Path, points: np.ndarray, colors: Optional[np.ndarray] 
             f.write(rec.tobytes())
 
 
-@profiling.spanned("io.load_obj")
-def load_obj(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
-    """Minimal OBJ mesh loader: vertices + triangulated faces."""
+#: What a block-parsed ``v`` / ``f`` line may hold after its key: plain
+#: decimals, and plain indices of under 19 digits (no int64 overflow), between
+#: ASCII blanks.  A file with anything else takes the per-line route.
+_V_CHARS = b"0123456789+-.eE \t\n"
+_F_CHARS = b"0 \t\n"
+_DIGITS_TO_0 = bytes.maketrans(b"123456789", b"000000000")
+
+
+def _lines(text: np.ndarray, starts: np.ndarray, ends: np.ndarray, rows: np.ndarray) -> bytes:
+    """The lines ``rows`` of ``text`` joined, one slice a run of consecutive lines."""
+    edge = np.diff(np.r_[0, rows.view(np.int8), 0])
+    view = memoryview(text)
+    return b"".join(view[a:b] for a, b in zip(starts[edge[:-1] == 1], ends[np.flatnonzero(edge == -1) - 1]))
+
+
+def _load_obj_blocks(data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """:func:`load_obj` of an ASCII file (``\\n`` or ``\\r\\n`` line ends)
+    whose ``v`` lines all hold the same number (at least 3) of coordinates and
+    whose ``f`` lines are all triangles of plain positive indices: every ``v``
+    line, then every ``f`` line, converted by one ``np.loadtxt`` each.  None
+    for any other file."""
+    if not data.isascii():
+        return None
+    if b"\r" in data:
+        data = data.replace(b"\r\n", b"\n")
+        if b"\r" in data:
+            return None
+    if not data.endswith(b"\n"):
+        data += b"\n"
+    text = np.frombuffer(data, np.uint8).copy()
+    ends = np.flatnonzero(text == ord("\n")) + 1
+    starts = np.r_[0, ends[:-1]]
+    # a line's key is its first byte where its second is a blank (an empty line has no second byte)
+    key = np.where(text[np.minimum(starts + 1, ends - 1)] == ord(" "), text[starts], 0)
+    is_v, is_f = key == ord("v"), key == ord("f")
+    if not is_v.any():
+        return None
+    text[starts[is_v | is_f]] = ord(" ")
+    v_text, f_text = _lines(text, starts, ends, is_v), _lines(text, starts, ends, is_f)
+    f_zeros = f_text.translate(_DIGITS_TO_0)
+    if v_text.translate(None, _V_CHARS) or f_zeros.translate(None, _F_CHARS) or b"0" * 19 in f_zeros:
+        return None
+    try:
+        verts = np.loadtxt(io.StringIO(v_text.decode()), np.float64, comments=None, ndmin=2)
+        faces = np.loadtxt(io.StringIO(f_text.decode()), np.int64, comments=None, ndmin=2) if f_text else None
+    except ValueError:  # a token loadtxt refuses, or rows of unequal width
+        return None
+    # np.loadtxt skips a line left blank after its key
+    if len(verts) != is_v.sum() or verts.shape[1] < 3:
+        return None
+    if faces is not None and (faces.shape != (is_f.sum(), 3) or (faces < 1).any()):
+        return None
+    return np.ascontiguousarray(verts[:, :3]), np.asarray([], np.int64) if faces is None else faces - 1
+
+
+def _load_obj_lines(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`load_obj` one line at a time: any OBJ, with n-gons
+    fan-triangulated, ``a/b/c`` indices and negative (relative) indices."""
     verts, faces = [], []
     with open(path) as f:
         for line in f:
@@ -150,6 +206,21 @@ def load_obj(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
                 for k in range(1, len(idx) - 1):  # fan-triangulate
                     faces.append([idx[0], idx[k], idx[k + 1]])
     return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
+
+
+@profiling.spanned("io.load_obj")
+def load_obj(path: str | Path) -> Tuple[np.ndarray, np.ndarray]:
+    """Minimal OBJ mesh loader: vertices (V, 3) float64 + triangulated faces
+    (F, 3) int64, 0-based.  A file of equal-width ``v`` lines and plain
+    triangles (a CAD export) is parsed in two blocks and counted as
+    ``io.load_obj.block``; any other file one line at a time.  Both routes
+    give the same arrays, bit for bit."""
+    with open(path, "rb") as f:
+        mesh = _load_obj_blocks(f.read())
+    if mesh is None:
+        return _load_obj_lines(path)
+    profiling.count("io.load_obj.block")
+    return mesh
 
 
 def sample_mesh_surface(
