@@ -57,6 +57,7 @@ from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.carving.voxel import bucket_size, points_by_parts, surface_points_by_parts
 from pbr3d_torch.ops.cameramath import _fma
 from pbr3d_torch.ops.cuda_kernels import splat_iou_kernel, splat_iou_plain
+from pbr3d_torch.utils import profiling
 from pbr3d_torch.utils.streams import adopt
 
 #: Reference step sizes (camera_estimation.py:605-616).
@@ -87,7 +88,8 @@ def _batch_iou(cam_vecs: torch.Tensor, pts, labels, gt_labels, part_ids, H: int,
     :func:`pbr3d_torch.ops.cuda_kernels.splat_iou_kernel`: ``pts (V, N, 3)``,
     ``labels``/``valid (V, N)``, ``gt_labels (V, H, W)`` and ``hw (V, 2)``
     int32 each view's true plane inside (H, W).  CUDA tensors go to
-    ``splat_iou_kernel``, CPU tensors to ``splat_iou_plain``."""
+    ``splat_iou_kernel``, CPU tensors to ``splat_iou_plain``; each call adds
+    one to the counter ``stage2.splat_calls``."""
     if (gt_labels.shape[-2], gt_labels.shape[-1]) != (H, W):
         raise ValueError(f"ground truth {tuple(gt_labels.shape)} is not on the ({H}, {W}) plane")
     if cam_vecs.device.type == "cuda":
@@ -96,6 +98,7 @@ def _batch_iou(cam_vecs: torch.Tensor, pts, labels, gt_labels, part_ids, H: int,
         score = splat_iou_plain
     else:
         raise ValueError(f"_batch_iou: unsupported device {cam_vecs.device}")
+    profiling.count("stage2.splat_calls")
     if cam_vecs.dim() == 2:
         return score(cam_vecs[None].contiguous(), pts[None].contiguous(), labels[None].contiguous(),
                      None if valid is None else valid[None].contiguous(), gt_labels[None].contiguous(),
@@ -373,7 +376,11 @@ def refine_camera_mask_iou(
     """Automated mask-IoU camera refinement on ``device``.  Returns (params,
     best IoU); the params include H/W like the reference's saved "final"
     tag (camera_estimation.py:536-541).  ``grid_labels`` is a host array or
-    a device tensor; ``draws`` is described in the module docstring."""
+    a device tensor; ``draws`` is described in the module docstring.  Each
+    call adds one to the counter ``stage2.searches`` (its own half-resolution
+    stage does not count again)."""
+    if _allow_coarse:
+        profiling.count("stage2.searches")
     H, W = mask_labels.shape[:2]
 
     if _allow_coarse and H * W > _COARSE_PLANE_PIXELS:

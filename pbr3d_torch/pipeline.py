@@ -13,9 +13,9 @@ of several, phase-major: the multi-scene carve, all views' camera searches
 grouped (``_stage2_all_batched``), and the monuments' refinements on a small
 thread pool, each started the moment its front camera is final.  Each entry
 that reads the PNG dataset (``data_root``) has a body on in-memory masks
-beside it (``run_stage2_views``, ``run_stage3_body``, ``run_pipeline_body``,
-``run_all_body``): the machines that run the port on the card need hold
-neither the dataset nor OpenCV.
+beside it (``run_stage1_body``, ``run_stage2_views``, ``run_stage3_body``,
+``run_pipeline_body``, ``run_all_body``): the machines that run the port on
+the card need hold neither the dataset nor OpenCV.
 
 Threads.  ``run_all``'s workers (two for the stage-2 preparation, three for
 stage 3) each issue their device work on a CUDA stream of their own
@@ -77,17 +77,35 @@ def run_stage1(
     *,
     device,
 ) -> np.ndarray:
-    """Orthographic semantic voxel carving (notebook 1) on ``device``."""
+    """Orthographic semantic voxel carving (notebook 1) on ``device``, from
+    the dataset's front masks at ``max_dim`` (default: the monument's golden
+    resolution); see :func:`run_stage1_body`."""
     if max_dim is None:
         max_dim = config.GOLDEN_MAX_DIM.get(monument, config.MAX_DIM)
-    masks = prepare_masks(data_root, monument, "front", max_dim)
-    grid = carve_monument_fused(masks, preset, device=device)
-    if out_dir is not None:
-        save_voxel_grid(
-            Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{monument}_voxel_grid.npz",
-            grid,
-        )
+    return run_stage1_body(monument, prepare_masks(data_root, monument, "front", max_dim), out_dir, preset,
+                           device=device)
+
+
+def run_stage1_body(
+    monument: str,
+    mask_set: MaskSet,
+    out_dir: Optional[str | Path] = None,
+    preset: config.CarvePreset = config.DEFAULT_CARVE_PRESET,
+    *,
+    device,
+) -> np.ndarray:
+    """The body of :func:`run_stage1` on in-memory prepared front masks: the
+    fused carve, and the grid saved under ``out_dir``.  Called on its own it
+    is a trace (``stage1``, with the monument); inside a study, its span."""
+    with profiling.trace("stage1", monument=monument):
+        grid = carve_monument_fused(mask_set, preset, device=device)
+        if out_dir is not None:
+            _save_stage1(out_dir, monument, grid)
     return grid
+
+
+def _save_stage1(out_dir: str | Path, monument: str, grid: np.ndarray) -> None:
+    save_voxel_grid(Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{monument}_voxel_grid.npz", grid)
 
 
 def _retry_starts(kp_params: Dict, grid_shape, view: str = "drone",
@@ -179,63 +197,66 @@ def run_stage2_views(
 
     Returns ``(cameras, ious)``: the ``{init, kp, final}`` cameras per view
     and each final camera's search IoU.  Views that fail minaret extraction
-    are skipped, mirroring the notebook's try/except (notebook 2 cell 5)."""
-    grid_dev = torch.as_tensor(grid_labels, device=device)
-    # The 3D minaret components depend only on the grid: shared by views.
-    try:
-        with profiling.span("stage2.labelling"):
-            vox_parts = extract_minaret_voxels_by_label(grid_labels)
-    except ValueError:
-        vox_parts = None
-
-    init_params: Dict[str, Dict] = {}
-    kp_params: Dict[str, Dict] = {}
-    final_params: Dict[str, Dict] = {}
-    ious: Dict[str, float] = {}
-    search = dict(generations=generations, population=population, draws=draws, device=device)
-    for view, mask in views.items():
+    are skipped, mirroring the notebook's try/except (notebook 2 cell 5).
+    Called on its own it is a trace (``stage2``, with the monument); inside
+    a study, its span."""
+    with profiling.trace("stage2", monument=monument):
+        grid_dev = torch.as_tensor(grid_labels, device=device)
+        # The 3D minaret components depend only on the grid: shared by views.
         try:
-            vox_kps, img_kps = extract_minaret_kps_for_view(grid_labels, mask, voxel_parts=vox_parts)
-            init = auto_compute_initial_params_matching_bbox(
-                grid_dev, mask, list(ALIGN_PARTS), device=device)
-        except ValueError as e:
-            print(f"[stage2] {monument}/{view} skipped: {e}", file=sys.stderr)
-            continue
-        init_params[view] = init
-        with profiling.span("stage2.keypoint_lm", view=view):
-            kp_params[view] = optimize_camera_with_keypoints(
-                vox_kps, img_kps, mask.shape[:2], init, device=device)
-        with profiling.span("stage2.search", view=view, start="kp"):
-            final_params[view], iou = refine_camera_mask_iou(
-                grid_dev, mask, list(ALIGN_PARTS), kp_params[view], seed=seed, **search)
-        if iou < RETRY_IOU_FLOOR[view]:
-            for tag, init2, scale in _retry_starts(
-                kp_params[view], np.asarray(grid_labels).shape, view,
-                mask_hw=mask.shape[:2], grid_labels=grid_dev, mask_labels=mask, device=device,
-            ):
-                with profiling.span("stage2.search", view=view, start=tag):
-                    p2, iou2 = refine_camera_mask_iou(
-                        grid_dev, mask, list(ALIGN_PARTS), init2,
-                        seed=seed + 1, step_scale=scale, **search)
-                if iou2 > iou:
-                    final_params[view], iou = p2, iou2
-        # quarter-step fine polish
-        with profiling.span("stage2.polish", view=view):
-            p3, iou3 = refine_camera_mask_iou(
-                grid_dev, mask, list(ALIGN_PARTS), final_params[view],
-                seed=seed + 3, step_scale=0.25, **search)
-        if iou3 > iou:
-            final_params[view], iou = p3, iou3
-        ious[view] = iou
+            with profiling.span("stage2.labelling"):
+                vox_parts = extract_minaret_voxels_by_label(grid_labels)
+        except ValueError:
+            vox_parts = None
 
-    cameras = {"init": init_params, "kp": kp_params, "final": final_params}
-    if out_dir is not None:
-        base = Path(out_dir) / "2.Perspective_Camera_Estimation"
-        for tag, params in cameras.items():
-            save_camera_params(
-                base / f"{monument}_camera_params_{tag}.json",
-                {v: {k: p[k] for k in p if k != "loss"} for v, p in params.items()},
-            )
+        init_params: Dict[str, Dict] = {}
+        kp_params: Dict[str, Dict] = {}
+        final_params: Dict[str, Dict] = {}
+        ious: Dict[str, float] = {}
+        search = dict(generations=generations, population=population, draws=draws, device=device)
+        for view, mask in views.items():
+            try:
+                vox_kps, img_kps = extract_minaret_kps_for_view(grid_labels, mask, voxel_parts=vox_parts)
+                init = auto_compute_initial_params_matching_bbox(
+                    grid_dev, mask, list(ALIGN_PARTS), device=device)
+            except ValueError as e:
+                print(f"[stage2] {monument}/{view} skipped: {e}", file=sys.stderr)
+                continue
+            init_params[view] = init
+            with profiling.span("stage2.keypoint_lm", view=view):
+                kp_params[view] = optimize_camera_with_keypoints(
+                    vox_kps, img_kps, mask.shape[:2], init, device=device)
+            with profiling.span("stage2.search", view=view, start="kp"):
+                final_params[view], iou = refine_camera_mask_iou(
+                    grid_dev, mask, list(ALIGN_PARTS), kp_params[view], seed=seed, **search)
+            if iou < RETRY_IOU_FLOOR[view]:
+                for tag, init2, scale in _retry_starts(
+                    kp_params[view], np.asarray(grid_labels).shape, view,
+                    mask_hw=mask.shape[:2], grid_labels=grid_dev, mask_labels=mask, device=device,
+                ):
+                    with profiling.span("stage2.search", view=view, start=tag):
+                        p2, iou2 = refine_camera_mask_iou(
+                            grid_dev, mask, list(ALIGN_PARTS), init2,
+                            seed=seed + 1, step_scale=scale, **search)
+                    if iou2 > iou:
+                        final_params[view], iou = p2, iou2
+            # quarter-step fine polish
+            with profiling.span("stage2.polish", view=view):
+                p3, iou3 = refine_camera_mask_iou(
+                    grid_dev, mask, list(ALIGN_PARTS), final_params[view],
+                    seed=seed + 3, step_scale=0.25, **search)
+            if iou3 > iou:
+                final_params[view], iou = p3, iou3
+            ious[view] = iou
+
+        cameras = {"init": init_params, "kp": kp_params, "final": final_params}
+        if out_dir is not None:
+            base = Path(out_dir) / "2.Perspective_Camera_Estimation"
+            for tag, params in cameras.items():
+                save_camera_params(
+                    base / f"{monument}_camera_params_{tag}.json",
+                    {v: {k: p[k] for k in p if k != "loss"} for v, p in params.items()},
+                )
     return cameras, ious
 
 
@@ -545,23 +566,20 @@ def run_pipeline_body(
     with profiling.trace("study", monument=monument):
         timings = {}
         t = time.perf_counter()
-        with profiling.span("stage1"):
-            if grid_stage1 is not None:
+        if grid_stage1 is not None:
+            with profiling.span("stage1"):
                 grid1 = grid_stage1
-            else:
-                grid1 = carve_monument_fused(scene.front, device=device)
-            if out_dir is not None:
-                save_voxel_grid(
-                    Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{monument}_voxel_grid.npz", grid1)
+                if out_dir is not None:
+                    _save_stage1(out_dir, monument, grid1)
+        else:
+            grid1 = run_stage1_body(monument, scene.front, out_dir, device=device)
         timings["stage1"] = (stage1_time if grid_stage1 is not None and stage1_time is not None
                              else time.perf_counter() - t)
         print(f"[{monument}] stage1 {timings['stage1']:.1f}s grid={grid1.shape}",
               file=sys.stderr, flush=True)
 
         t = time.perf_counter()
-        with profiling.span("stage2"):
-            cameras, _ = run_stage2_views(monument, grid1, scene.views, out_dir, device=device,
-                                          **(stage2_kw or {}))
+        cameras, _ = run_stage2_views(monument, grid1, scene.views, out_dir, device=device, **(stage2_kw or {}))
         timings["stage2"] = time.perf_counter() - t
         print(f"[{monument}] stage2 {timings['stage2']:.1f}s views={list(cameras['final'])}",
               file=sys.stderr, flush=True)
@@ -977,7 +995,5 @@ def run_all_body(
 
         if out_dir is not None:
             for m, r in out.items():
-                save_voxel_grid(
-                    Path(out_dir) / "1.Orthographic_Voxel_Carving" / f"{m}_voxel_grid.npz",
-                    r.grid_stage1)
+                _save_stage1(out_dir, m, r.grid_stage1)
         return out
