@@ -180,9 +180,9 @@ from pbr3d_torch.camera.estimate import (
 )
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
-from pbr3d_torch.carving.fused import _sweep_working_set, carve_monument_fused, carve_monuments_batched
+from pbr3d_torch.carving.fused import _label_part, _sweep_working_set, carve_monument_fused, carve_monuments_batched
 from pbr3d_torch.carving.stage1 import (
-    _label_part, carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
+    carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
     recolor_backward_components, reorient,
 )
 from pbr3d_torch.carving.voxel import all_points, meshify_colored_voxel_grid, surface_points_by_parts
@@ -193,7 +193,6 @@ from pbr3d_torch.eval import gates, inter, intra, preprocess
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels, save_voxel_grid
 from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.io.pointcloud import load_obj, load_ply, save_ply
-from pbr3d_torch.carving import fused as fused_route
 from pbr3d_torch.ops import components, morphology, neighbors
 from pbr3d_torch.ops.cuda_kernels import (
     component_stats_kernel, component_stats_plain, components_kernel, components_plain, knn_kernel, knn_plain,
@@ -813,14 +812,13 @@ def phase_components_kernel(fx) -> dict:
         for connectivity in ("face", "full") if name == "occupancy" else ("face",):
             components_agree(mask, connectivity, f"Bibi@512 {name} {mask.shape}")
     crops = []
-    real = fused_route._host_scipy_label
 
-    def recording(mask_np, connectivity):
-        crops.append((np.array(mask_np), connectivity))
-        return real(mask_np, connectivity)
+    def recording(vol, full):
+        crops.append((vol.bool().cpu().numpy(), "full" if full else "face"))
+        return components_kernel(vol, full)
 
     masks = MaskSet.from_labels(fx["binary"], fx["exterior_labels"], fx["semantic_labels"])
-    with mock.patch.object(fused_route, "_host_scipy_label", recording):
+    with mock.patch.object(components, "components_kernel", recording):
         carve_monument_fused(masks, device="cuda")
     check(len(crops) > 0, "the fused route labelled nothing")
     for k, (mask, connectivity) in enumerate(crops):
@@ -845,7 +843,7 @@ def phase_components_kernel(fx) -> dict:
         return components.connected_components_device(grid_t == pid, "face")[1]
 
     def bbox():
-        return _label_part(grid_t, pid)[1]
+        return _label_part(grid_t, pid, "stage1.part")[1]
 
     check(whole() == bbox(), "the whole grid and the part's bbox give other component counts")
     times = {"whole": [], "bbox": []}

@@ -11,12 +11,17 @@ the reference implementation).
 Phases (reference: utils/voxel_carving_utils.py:269-400):
 
 1. global carve + per-part-group re-carve (device sweeps);
-2. component-guided carve: host scipy labelling of one grid download, each
-   part on its occupied bbox only, then the device sweeps of the component
-   bbox windows;
+2. component-guided carve: each part labelled on its occupied bbox
+   (:func:`_label_part`), then the device sweeps of the component bbox
+   windows;
 3. interior extrusion of doors/windows in the four directions (device);
-4. the persistent transpose+flip reorientation (device) and the
-   back-minaret recolor (host).
+4. the persistent transpose+flip reorientation and the back-minaret
+   recolor (device), then the grid's one download.
+
+A CUDA grid stays on the card until that download: the labelling and the
+component statistics run on the card, and only the parts' occupancy
+profiles and the statistics cross to the host.  A CPU grid is labelled by
+the host's scipy on its numpy view.
 
 Batching.  Where the JAX package pads volumes to a common bucket and
 ``vmap``s, the port lays them side by side: a sweep works on an ``(H, W*D)``
@@ -39,7 +44,9 @@ import torch
 from pbr3d_torch import config
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.ops.carve import _stacked_plans, sweep_scan
-from pbr3d_torch.ops.components import _host_component_stats, _host_scipy_label
+from pbr3d_torch.ops.components import (
+    _host_component_stats, _host_scipy_label, component_stats, connected_components_device,
+)
 from pbr3d_torch.utils import profiling
 from pbr3d_torch.utils.streams import adopt, worker_stream
 
@@ -112,8 +119,43 @@ def _global_and_part_carve(
     return [g.contiguous() for g in _split_plane(final, whd, offsets)]
 
 
+def _label_part(grid: torch.Tensor, part_id: int, span: str, centroid_axes=None, **attrs):
+    """The face components of ``grid == part_id``, labelled on the part's
+    occupied bbox (the grid's components, numbered in the same raster
+    order): ``(labels int32 of the crop on the grid's device, n, statistics
+    as host arrays indexed 0..n, the crop's slices)``, or None when the
+    part is absent.  Finding the bbox downloads the three occupancy
+    profiles.
+
+    The labeller follows the grid's device.  A CUDA grid is labelled and
+    measured on the card (:func:`connected_components_device`,
+    :func:`component_stats`), counted as ``stage1.device_labels``; a CPU
+    grid by the host's scipy on its numpy view, much faster there than the
+    plain relaxation.  Both give the same labels and the same statistics
+    bit for bit.  ``centroid_axes`` limits the centroid columns the host
+    fills (None: all; the card fills all).  The spans are
+    ``<span>.{eqbbox,label,stats}`` with ``attrs``."""
+    with profiling.span(span + ".eqbbox", **attrs):
+        part = grid == part_id
+        profiles = torch.cat([part.any(dim=tuple(a for a in range(3) if a != ax)) for ax in range(3)])
+        occupied = [np.flatnonzero(p) for p in np.split(profiles.cpu().numpy(), np.cumsum(grid.shape)[:-1])]
+    if occupied[0].size == 0:
+        return None
+    box = tuple(slice(int(o[0]), int(o[-1]) + 1) for o in occupied)
+    with profiling.span(span + ".label", **attrs):
+        if grid.is_cuda:
+            labels, n = connected_components_device(part[box], "face")
+            profiling.count("stage1.device_labels")
+        else:
+            host, n = _host_scipy_label(part[box].numpy(), "face")
+            labels = torch.from_numpy(host)
+    with profiling.span(span + ".stats", **attrs):
+        stats = component_stats(labels, n) if grid.is_cuda else _host_component_stats(host, n, centroid_axes)
+    return labels, n, stats, box
+
+
 def _collect_guided_jobs(
-    grid_host: np.ndarray,  # (w, h, d) labels of one scene
+    grid: torch.Tensor,  # (w, h, d) labels of one scene
     exterior_labels: np.ndarray,
     part_symmetry,
 ) -> List[Dict]:
@@ -121,32 +163,22 @@ def _collect_guided_jobs(
     ``left_right_guided_carve``, voxel_carving_utils.py:163-210), without
     applying them: per component of each part its bbox window ``start``
     (full-frame), its own occupancy ``comp (w, h, d)`` bool, the bbox-cropped
-    2D part mask ``m_wh (w, h)`` bool and the sweep ``angle``.
-
-    Labelling runs on the part's occupied bbox only: the components are the
-    same (face connectivity cannot cross a bbox that holds every part
-    voxel), at a fraction of a full-grid labelling."""
+    2D part mask ``m_wh (w, h)`` bool, both on the grid's device, and the
+    sweep ``angle``.  Each part is labelled on its occupied bbox
+    (:func:`_label_part`)."""
     jobs = []
     for part, angle in part_symmetry:
         target = PART_IDS[part]
         mask2d = exterior_labels == target
         if not mask2d.any():
             continue
-        with profiling.span("stage1.part.eqbbox", part=part):
-            occ = grid_host == target
-            bb = _bbox3(occ)
-        if bb is None:
+        found = _label_part(grid, target, "stage1.part", centroid_axes=(), part=part)
+        if found is None:
             continue
-        (X0, X1), (Y0, Y1), (Z0, Z1) = bb
-        with profiling.span("stage1.part.label", part=part):
-            comp_c, n = _host_scipy_label(occ[X0:X1, Y0:Y1, Z0:Z1], "face")
-        if n == 0:
-            continue
-        with profiling.span("stage1.part.stats", part=part):
-            stats = _host_component_stats(comp_c, n, centroid_axes=())
+        comp_c, n, stats, box = found
+        X0, Y0, Z0 = (s.start for s in box)
+        mask_hw = torch.from_numpy(mask2d).to(grid.device)
         for i in range(1, n + 1):
-            if stats["count"][i] == 0:
-                continue
             # stats are in the crop frame; jobs carry full-frame coordinates
             lo = [int(v) for v in stats["bbox_min"][i]]
             hi = [int(v) + 1 for v in stats["bbox_max"][i]]
@@ -155,7 +187,7 @@ def _collect_guided_jobs(
             jobs.append(dict(
                 start=(x0, y0, z0),
                 comp=comp_c[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] == i,
-                m_wh=np.ascontiguousarray(mask2d[y0:y1, x0:x1].T),
+                m_wh=mask_hw[y0:y1, x0:x1].T,
                 angle=int(angle),
             ))
     return jobs
@@ -166,16 +198,15 @@ def _guided_erases(jobs: Sequence[Dict], angle: int, device) -> List[torch.Tenso
     ``(w, h, d)`` bool voxels of its component that the sweep of the
     component's own occupancy against the window's part mask removes.  All
     windows go through one set of launches."""
-    whd = [j["comp"].shape for j in jobs]
+    whd = [tuple(j["comp"].shape) for j in jobs]
     idx, dec, offsets = _stacked_plan_tensors(whd, angle, device)
-    shape = (max(h for _, h, _ in whd), int(offsets[-1]))
-    occ = np.zeros(shape, np.uint8)
-    mask = np.zeros(shape, np.uint8)
+    occ = torch.zeros((max(h for _, h, _ in whd), int(offsets[-1])), dtype=torch.uint8, device=device)
+    mask = torch.zeros_like(occ)
     for j, (w, h, d), o in zip(jobs, whd, offsets):
-        occ[:h, o:o + w * d] = j["comp"].transpose(1, 0, 2).reshape(h, w * d)
-        mask[:h, o:o + w * d] = np.repeat(j["m_wh"].T, d, axis=1)
-    occ = torch.from_numpy(occ).to(device)
-    carved = sweep_scan(occ, torch.from_numpy(mask).to(device), idx, dec)
+        cols = slice(int(o), int(o) + w * d)
+        occ[:h, cols] = j["comp"].permute(1, 0, 2).reshape(h, w * d)
+        mask[:h, cols] = j["m_wh"].T[:, :, None].expand(h, w, d).reshape(h, w * d)
+    carved = sweep_scan(occ, mask, idx, dec)
     return _split_plane((occ > 0) & (carved == 0), whd, offsets)
 
 
@@ -226,16 +257,10 @@ def guided_carve_all(
     part_symmetry,
 ) -> torch.Tensor:
     """Component-guided carving of one scene for every part in
-    ``part_symmetry``.
-
-    The grid is downloaded ONCE; component labelling and stats run on the
-    host (exact scipy).  Only the components' window crops are uploaded.
-    Updates ``grid`` in place and returns it.
-    """
-    if not any((exterior_labels == PART_IDS[p]).any() for p, _ in part_symmetry):
-        return grid
-    jobs = _collect_guided_jobs(grid.cpu().numpy(), exterior_labels, part_symmetry)
-    return guided_carve_batched({0: grid}, {0: jobs})[0]
+    ``part_symmetry``.  The grid stays on its device; each part is labelled
+    where it lies (:func:`_label_part`).  Updates ``grid`` in place and
+    returns it."""
+    return guided_carve_batched({0: grid}, {0: _collect_guided_jobs(grid, exterior_labels, part_symmetry)})[0]
 
 
 def guided_carve_fused(
@@ -302,6 +327,33 @@ def _extrude_all(
     return grid
 
 
+def recolor_back(
+    g: torch.Tensor,  # (d, h, w) uint8, ALREADY reoriented; edited in place
+    k: int = 2,
+    sort_axis: int = 0,
+    part_name: str = "front_minarets",
+    new_part_name: str = "back_minarets",
+) -> torch.Tensor:
+    """Back-minaret recolor of an already-reoriented grid (reference
+    voxel_carving_utils.py:252-266): all but the ``k`` front-most
+    ``part_name`` components (smallest mean coordinate along ``sort_axis``,
+    ties to the lower component id) become ``new_part_name``.  Labelling
+    runs where the grid lies, on the part's occupied bbox
+    (:func:`_label_part`); the downloaded centroids are ranked on the host
+    and the recolor runs on the grid's device."""
+    found = _label_part(g, PART_IDS[part_name], "stage1.recolor", centroid_axes=(sort_axis,))
+    if found is None or found[1] <= k:
+        return g
+    comp, n, stats, box = found
+    # crop-frame centroids: the constant bbox offset does not change the
+    # front-most ranking along sort_axis
+    means = stats["centroid"][1 : n + 1, sort_axis]
+    keep = set((np.argsort(means, kind="stable")[:k] + 1).tolist())
+    recolor = torch.tensor([i for i in range(1, n + 1) if i not in keep], dtype=torch.int32, device=comp.device)
+    g[box].masked_fill_(torch.isin(comp, recolor), PART_IDS[new_part_name])
+    return g
+
+
 def recolor_back_host(
     g: np.ndarray,  # (d, h, w) uint8, ALREADY reoriented, host; edited in place
     k: int = 2,
@@ -309,49 +361,11 @@ def recolor_back_host(
     part_name: str = "front_minarets",
     new_part_name: str = "back_minarets",
 ) -> np.ndarray:
-    """Back-minaret recolor of an already-reoriented grid (reference
-    voxel_carving_utils.py:252-266): all but the ``k`` front-most
-    ``part_name`` components (smallest mean coordinate along ``sort_axis``,
-    ties to the lower component id) become ``new_part_name``.  Labeling runs
-    on the part's occupied bbox only (identical components, numbered in the
-    same raster order)."""
-    with profiling.span("stage1.host_label.copy"):
-        if not g.flags.writeable:
-            g = g.copy()
-    pid = PART_IDS[part_name]
-    new_pid = PART_IDS[new_part_name]
-    with profiling.span("stage1.host_label.eqbbox"):
-        occ = g == pid
-        bb = _bbox3(occ)
-    if bb is None:
-        return g
-    (X0, X1), (Y0, Y1), (Z0, Z1) = bb
-    with profiling.span("stage1.host_label.label"):
-        comp, n = _host_scipy_label(occ[X0:X1, Y0:Y1, Z0:Z1], "face")
-    if n <= k:
-        return g
-    with profiling.span("stage1.host_label.stats"):
-        stats = _host_component_stats(comp, n, centroid_axes=(sort_axis,))
-    # crop-frame centroids: the constant bbox offset does not change the
-    # front-most ranking along sort_axis
-    means = stats["centroid"][1 : n + 1, sort_axis]
-    keep = set((np.argsort(means, kind="stable")[:k] + 1).tolist())
-    recolor_ids = np.array([i for i in range(1, n + 1) if i not in keep], np.int32)
-    sub = g[X0:X1, Y0:Y1, Z0:Z1]
-    sub[np.isin(comp, recolor_ids)] = new_pid
+    """:func:`recolor_back` of a host grid (the JAX package's twin)."""
+    if not g.flags.writeable:
+        g = g.copy()
+    recolor_back(torch.from_numpy(g), k, sort_axis, part_name, new_part_name)
     return g
-
-
-def _bbox3(occ: np.ndarray):
-    """((x0,x1),(y0,y1),(z0,z1)) half-open bbox of True voxels, or None."""
-    out = []
-    for ax in range(3):
-        proj = occ.any(axis=tuple(i for i in range(3) if i != ax))
-        nz = np.flatnonzero(proj)
-        if nz.size == 0:
-            return None
-        out.append((int(nz[0]), int(nz[-1]) + 1))
-    return out
 
 
 def reorient(g: torch.Tensor) -> torch.Tensor:
@@ -388,7 +402,7 @@ def _preset_sweeps(preset: config.CarvePreset):
 def _finish_scene(grid: torch.Tensor, mask_set, preset: config.CarvePreset) -> np.ndarray:
     """Phases 2-4 of one scene from its global + group carve ``grid``
     (W, H, D), which may come from another thread's stream; returns the host
-    grid, reoriented and recoloured."""
+    grid, reoriented and recoloured, in the scene's one download."""
     adopt(grid)
     with profiling.span("stage1.guided"):
         grid = guided_carve_all(grid, mask_set.exterior_labels, preset.part_symmetry)
@@ -397,12 +411,12 @@ def _finish_scene(grid: torch.Tensor, mask_set, preset: config.CarvePreset) -> n
         sem_wh = torch.from_numpy(np.ascontiguousarray(mask_set.semantic_labels.T)).to(grid.device)
         with profiling.span("stage1.extrude"):
             grid = _extrude_all(grid, sem_wh, jobs)
-    if not preset.recolor_back_minarets:
+    if preset.recolor_back_minarets:
+        grid = reorient(grid)
+        with profiling.span("stage1.recolor"):
+            recolor_back(grid)
+    with profiling.span("stage1.download"):
         return grid.cpu().numpy()
-    with profiling.span("stage1.download_reorient"):
-        host = reorient(grid).cpu().numpy()
-    with profiling.span("stage1.recolor"):
-        return recolor_back_host(host)
 
 
 def carve_monument_fused(
@@ -448,8 +462,8 @@ def carve_monuments_batched(
     group carves of all scenes run as one set of launches; else each scene
     sweeps on its own.  Either way two worker threads, each on a CUDA stream
     of its own, take the scenes through their remaining phases, so scene i's
-    host work (component labelling, recolour, downloads) overlaps scene
-    i+1's device work; one worker when two scenes' sweeps would not fit.
+    host work (launches, statistics and downloads) overlaps scene i+1's
+    device work; one worker when two scenes' sweeps would not fit.
 
     ``on_grid(monument, grid)`` is called in the caller's thread, in the
     order of ``mask_sets``, as each scene finalizes, so per-scene downstream

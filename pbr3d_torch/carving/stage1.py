@@ -25,9 +25,10 @@ the global angle; :func:`carve_monument` takes any.  The two give the same
 grid but where step 3 differs (see :func:`component_guided_carve`), as the
 JAX package's two routes do.
 Device work runs on ``device``, and so does the labelling of steps 3 and
-5: the labels stay there (:func:`pbr3d_torch.ops.components.connected_components_device`,
-scipy raster order, as the JAX package numbers them), and only the small
-statistics cross to the host.
+5 on a CUDA device: both routes label a part through
+:func:`pbr3d_torch.carving.fused._label_part` (scipy raster order, as the
+JAX package numbers them), whose labels stay on the grid's device while
+only the small statistics cross to the host.
 """
 
 from __future__ import annotations
@@ -38,10 +39,9 @@ import numpy as np
 import torch
 
 from pbr3d_torch import config
-from pbr3d_torch.carving.fused import _extrude, reorient
+from pbr3d_torch.carving.fused import _extrude, _label_part, recolor_back, reorient
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.ops.carve import rotate_carve_sweep
-from pbr3d_torch.ops.components import component_stats, connected_components_device
 
 
 def _as_wh(mask, W: int, H: int):
@@ -110,23 +110,6 @@ def part_carve(
     return final
 
 
-def _label_part(grid: torch.Tensor, part_id: int):
-    """The face components of ``grid == part_id``, labelled where the grid
-    lies on the part's occupied bbox (the grid's components, numbered in the
-    same raster order): (labels of the crop, n, the crop's slices), or None
-    when the part is absent.  Finding the bbox costs one download of the
-    three occupied-index profiles; on Bibi@512 the crop and its labelling
-    take less than labelling the whole grid (``PERF.md``)."""
-    part = grid == part_id
-    profiles = torch.cat([part.any(dim=tuple(a for a in range(3) if a != ax)) for ax in range(3)]).cpu().numpy()
-    occupied = [np.flatnonzero(p) for p in np.split(profiles, np.cumsum(grid.shape)[:-1])]
-    if occupied[0].size == 0:
-        return None
-    box = tuple(slice(int(o[0]), int(o[-1]) + 1) for o in occupied)
-    comp, n = connected_components_device(part[box], "face")
-    return comp, n, box
-
-
 def component_guided_carve(
     labels_grid,
     exterior_labels: np.ndarray,
@@ -154,11 +137,10 @@ def component_guided_carve(
     mask2d = np.asarray(exterior_labels) == target  # (H, W)
     if not mask2d.any():
         return labels_grid
-    found = _label_part(labels_grid, target)
+    found = _label_part(labels_grid, target, "stage1.part", centroid_axes=(), part=part_name)
     if found is None:
         return labels_grid
-    comp, n, box = found
-    stats = component_stats(comp, n)
+    comp, n, stats, box = found
     X0, Y0, Z0 = (s.start for s in box)
     for i in range(1, n + 1):
         (a0, b0, c0), (a1, b1, c1) = stats["bbox_min"][i], stats["bbox_max"][i] + 1
@@ -225,20 +207,11 @@ def recolor_backward_components(
     """Keep the ``k`` components of ``part_name`` with the smallest mean
     coordinate along ``sort_axis`` (a stable ranking: equal means go to the
     lower component id); recolor the rest to ``new_part_name`` (reference:
-    voxel_carving_utils.py:252-266).  Labelling and the statistics run on
-    ``device``; the centroids of the downloaded statistics are ranked on the
-    host, and the recolour runs on ``device``.  Returns a new grid."""
+    voxel_carving_utils.py:252-266), as the fused route's
+    :func:`pbr3d_torch.carving.fused.recolor_back` does on ``device``.
+    Returns a new grid."""
     grid = torch.as_tensor(labels_grid, device=device).clone(memory_format=torch.contiguous_format)
-    found = _label_part(grid, PART_IDS[part_name])
-    if found is None or found[1] <= k:
-        return grid
-    comp, n, box = found
-    # crop-frame centroids: the bbox offset does not change the ranking
-    means = component_stats(comp, n)["centroid"][1 : n + 1, sort_axis]
-    keep = set((np.argsort(means, kind="stable")[:k] + 1).tolist())
-    recolor = torch.tensor([i for i in range(1, n + 1) if i not in keep], dtype=torch.int32, device=comp.device)
-    grid[box].masked_fill_(torch.isin(comp, recolor), PART_IDS[new_part_name])
-    return grid
+    return recolor_back(grid, k, sort_axis, part_name, new_part_name)
 
 
 def partwise_carve(

@@ -20,8 +20,10 @@ each entry takes:
   CPU), whose values are bit-equal to the host's.
 
 Every route numbers components 1..n in scipy's raster order (the order of
-each component's first voxel).  The fused stage-1 route, the keypoints,
-the voxel helpers and the morphology call the host helpers explicitly.
+each component's first voxel).  Both stage-1 routes label a part through
+:func:`pbr3d_torch.carving.fused._label_part`, which sends a CUDA grid to
+the kernels and a CPU grid to the host helpers; the keypoints, the voxel
+helpers and the morphology call the host helpers explicitly.
 """
 
 from __future__ import annotations

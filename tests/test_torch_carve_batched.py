@@ -119,13 +119,13 @@ def test_collect_guided_jobs_gives_the_windows_of_full_grid_labelling(scenes, na
     """Labelling each part on its occupied bbox gives the components, in the
     order and with the windows, of labelling the whole grid."""
     ms = scenes[name]
-    grid = _sweep_grid(ms).numpy()
+    grid = _sweep_grid(ms)
     jobs = torch_fused._collect_guided_jobs(grid, ms.exterior_labels, PRESET.part_symmetry)
     expect = []
     for part, angle in PRESET.part_symmetry:
         if not (ms.exterior_labels == PART_IDS[part]).any():
             continue
-        comp, n = scipy.ndimage.label(grid == PART_IDS[part])
+        comp, n = scipy.ndimage.label(grid.numpy() == PART_IDS[part])
         for i, sl in enumerate(scipy.ndimage.find_objects(comp), start=1):
             expect.append((tuple(s.start for s in sl), comp[sl] == i, int(angle),
                            (ms.exterior_labels == PART_IDS[part])[sl[1], sl[0]].T))
@@ -144,7 +144,7 @@ def test_guided_windows_in_chunks_and_across_scenes(scenes, monkeypatch):
     alone = {m: torch_fused.guided_carve_all(
         grids[m].clone(), scenes[m].exterior_labels, PRESET.part_symmetry) for m in names}
     jobs = {m: torch_fused._collect_guided_jobs(
-        grids[m].numpy(), scenes[m].exterior_labels, PRESET.part_symmetry) for m in names}
+        grids[m], scenes[m].exterior_labels, PRESET.part_symmetry) for m in names}
     calls = []
     erases = torch_fused._guided_erases
     monkeypatch.setattr(torch_fused, "_guided_erases",
