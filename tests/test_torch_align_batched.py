@@ -23,6 +23,8 @@ from pbr3d.camera.keypoints import extract_minaret_kps_for_view
 from pbr3d.carving.voxel import surface_points_by_parts
 from pbr3d_torch.camera import align as talign
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 PARTS = ["front_minarets", "back_minarets"]
 KW = dict(generations=4, population=16, seed=0)

@@ -9,7 +9,7 @@ notebook-4 loader's resize, and the study's front planes under it.
 
 (b) The bench on Akbar at 128 (the oracle's recovered masks and a planted
 drone view, ``scripts/make_torch_port_stage2_fixture.py::akbar_128``) at the
-cut knobs of ``tests/test_torch_run_all.py``, two passes, through ``main()``:
+cut knobs of ``tests/torch_run_all_cases.py``, two passes, through ``main()``:
 every key, the protocol, the gates of the returned results, the last line,
 no file written.  A front plane of another shape than its grid's notebook-4
 mask is refused; the trace and ``main()`` without a card fail."""
@@ -42,6 +42,8 @@ from pbr3d_torch.io.artifacts import load_voxel_grid_labels
 from pbr3d_torch.io.masks import MaskSet, voxel_grid_mask_shape
 from pbr3d_torch.io.masks import resize_mask_to_voxel_grid as torch_resize
 from pbr3d_torch.pipeline import SceneMasks
+
+pytest_plugins = ["torch_threads"]
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "results_temp_golden"

@@ -36,6 +36,8 @@ from pbr3d_torch.camera import keypoints as tkp
 from pbr3d_torch.carving import voxel as tvox
 from pbr3d_torch.ops import components as tcomp
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 PARTS = ["front_minarets", "back_minarets"]
 VIEWS = ("front", "drone")

@@ -20,6 +20,8 @@ from pbr3d_torch.carving import fused as torch_fused
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.io.masks import MaskSet
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "fixtures"
 PRESET = config.DEFAULT_CARVE_PRESET

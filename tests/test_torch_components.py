@@ -27,6 +27,8 @@ from pbr3d.ops import components as jax_components
 from pbr3d_torch.ops import components as C
 from pbr3d_torch.ops import cuda_kernels as ck
 
+pytest_plugins = ["torch_threads"]
+
 
 #: Shapes that several cases share, so that the JAX package compiles its
 #: relaxation for few shapes.

@@ -11,6 +11,8 @@ import pytest
 from pbr3d import config as jcfg
 from pbr3d_torch import config as tcfg
 
+pytest_plugins = ["torch_threads"]
+
 
 def _public(mod):
     """Names a module defines for its users: no imports, no private names."""

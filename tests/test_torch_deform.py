@@ -31,6 +31,8 @@ from pbr3d.ops.point_table import build_point_table as jax_table
 from pbr3d_torch.deform import search, verify, warp
 from pbr3d_torch.ops.point_table import build_point_table
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 CAMS = REPO / "results_temp_golden/2.Perspective_Camera_Estimation"
 PARTS3 = ["dome", "windows", "main_door"]

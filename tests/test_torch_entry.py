@@ -9,6 +9,8 @@ import numpy as np
 import __graft_entry__ as graft
 from pbr3d_torch.entry import entry
 
+pytest_plugins = ["torch_threads"]
+
 
 def test_entry_forward_matches_jax():
     fn, args = graft.entry()

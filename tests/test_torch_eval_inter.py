@@ -14,6 +14,8 @@ from scipy.spatial import cKDTree
 from pbr3d.eval import inter as jax_inter
 from pbr3d_torch.eval import inter
 
+pytest_plugins = ["torch_threads"]
+
 EPS = float(np.finfo(np.float32).eps)
 THRESHOLDS = np.linspace(0.005, 0.1, 20)
 

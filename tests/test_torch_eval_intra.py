@@ -17,6 +17,8 @@ from pbr3d_torch.deform import verify
 from pbr3d_torch.eval import intra
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 RESULTS = {"256": REPO / "results_temp", "golden": REPO / "results_temp_golden"}
 M = "Akbar"

@@ -24,6 +24,8 @@ from pbr3d_torch.eval import inter
 from pbr3d_torch.io import artifacts
 from pbr3d_torch.io import pointcloud as pc
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 AKBAR = REPO / "results_temp/1.Orthographic_Voxel_Carving/Akbar_voxel_grid.npz"
 

@@ -19,6 +19,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 TWINS = sorted((REPO / "examples" / "torch").glob("[1-6]_*.py"))
 JAX_SCRIPTS = sorted((REPO / "examples").glob("[1-6]_*.py"))

@@ -9,6 +9,8 @@ import importlib
 
 import pytest
 
+pytest_plugins = ["torch_threads"]
+
 SUBPACKAGES = ["carving", "camera", "io", "ops", "deform", "eval", "segmentation"]
 #: name -> why the port leaves it out (empty: every name has a counterpart).
 NOT_PORTED: dict = {}

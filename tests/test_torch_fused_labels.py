@@ -24,6 +24,8 @@ from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.utils import profiling
 
+pytest_plugins = ["torch_threads"]
+
 STUDY = Path(__file__).resolve().parent / "fixtures" / "torch_port_study.npz"
 FB, FM, BM = PART_IDS["full_building"], PART_IDS["front_minarets"], PART_IDS["back_minarets"]
 DOME = PART_IDS["dome"]

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 
 MODULES = [

@@ -8,6 +8,8 @@ import pytest
 from pbr3d.ops import isosurface as jax_iso
 from pbr3d_torch.ops import isosurface as iso
 
+pytest_plugins = ["torch_threads"]
+
 
 def _volumes():
     rng = np.random.default_rng(3)

@@ -19,6 +19,8 @@ from pbr3d.ops import neighbors as jax_neighbors
 from pbr3d_torch.ops import cuda_kernels, neighbors
 from pbr3d_torch.ops.cuda_kernels import knn_kernel, knn_launch_plan, knn_plain
 
+pytest_plugins = ["torch_threads"]
+
 EPS = float(np.finfo(np.float32).eps)
 
 

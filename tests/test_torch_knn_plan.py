@@ -20,6 +20,8 @@ import torch
 from pbr3d_torch.ops import cuda_kernels as ck
 from pbr3d_torch.ops.cuda_kernels import _launch_plan, knn_kernel, knn_launch_plan, knn_plain
 
+pytest_plugins = ["torch_threads"]
+
 #: (n, m, k) of the four timed shapes, one query, and fewer points than k.
 SHAPES = [(50000, 50000, 2), (120000, 120000, 20), (100000, 100000, 1), (185750, 1450802, 1),
           (1, 5000, 20), (300, 3, 5), (7, 1, 1)]

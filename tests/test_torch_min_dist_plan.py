@@ -13,6 +13,8 @@ import torch
 from pbr3d_torch.ops import cuda_kernels as ck
 from pbr3d_torch.ops.cuda_kernels import _launch_plan, min_dist2_plain
 
+pytest_plugins = ["torch_threads"]
+
 #: (n, m, SMs, resident blocks per SM): N below one block, M = 1, M below a
 #: chunk, ragged N and M, one query against many points, the main path's
 #: 20k and 50k on an H100's 132 SMs, and cards of other sizes.

@@ -10,6 +10,8 @@ import scipy.ndimage
 from pbr3d.ops import morphology as jax_morph
 from pbr3d_torch.ops import morphology as morph
 
+pytest_plugins = ["torch_threads"]
+
 
 @pytest.fixture
 def rng():

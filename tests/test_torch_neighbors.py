@@ -15,6 +15,8 @@ from pbr3d.ops.pallas_kernels import min_dist2_pallas
 from pbr3d_torch.ops import neighbors
 from pbr3d_torch.ops.cuda_kernels import min_dist2_kernel, min_dist2_plain
 
+pytest_plugins = ["torch_threads"]
+
 EPS = float(np.finfo(np.float32).eps)
 
 

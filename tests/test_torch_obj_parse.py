@@ -12,6 +12,8 @@ from pbr3d.io import pointcloud as jax_pc
 from pbr3d_torch.io import pointcloud as pc
 from pbr3d_torch.utils import profiling
 
+pytest_plugins = ["torch_threads"]
+
 
 def per_line_load_obj(path):
     """The per-line parse as ``load_obj`` had it before the block route."""

@@ -14,6 +14,8 @@ from pbr3d_torch import pipeline
 from pbr3d_torch.io import artifacts, masks
 from pbr3d_torch.utils import profiling
 
+pytest_plugins = ["torch_threads"]
+
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):

@@ -13,6 +13,8 @@ from pbr3d.config import rgb_to_labels
 from pbr3d.ops.point_table import build_point_table as jax_table
 from pbr3d_torch.ops.point_table import build_point_table
 
+pytest_plugins = ["torch_threads"]
+
 PIDS = [pid for pid in config.PART_IDS.values() if pid < 10]
 
 

@@ -21,6 +21,8 @@ from pbr3d_torch import config
 from pbr3d_torch.eval import preprocess as pre
 from pbr3d_torch.utils import profiling
 
+pytest_plugins = ["torch_threads"]
+
 
 @pytest.fixture
 def rng():

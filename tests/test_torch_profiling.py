@@ -16,6 +16,8 @@ import torch
 from pbr3d.utils import profiling as jax_profiling
 from pbr3d_torch.utils import profiling
 
+pytest_plugins = ["torch_threads"]
+
 
 def test_device_sync_without_cuda():
     assert not torch.cuda.is_initialized()

@@ -19,6 +19,8 @@ from pbr3d_torch.camera.align import _search_one
 from pbr3d_torch.ops import cameramath as tcm
 from pbr3d_torch.ops import projection as tproj
 
+pytest_plugins = ["torch_threads"]
+
 H, W = 64, 80
 MAX_TIE_PIXELS = 10
 

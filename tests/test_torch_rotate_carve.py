@@ -16,6 +16,8 @@ from pbr3d_torch.carving import stage1 as torch_stage1
 from pbr3d_torch.ops import carve as torch_carve
 from pbr3d_torch.ops import rotate as torch_rotate
 
+pytest_plugins = ["torch_threads"]
+
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 PLAN_CASES = [(64, 64, 5.0), (64, 64, 45.0), (40, 56, 30.0), (33, 47, 90.0), (50, 50, 10.0)]
 

@@ -1,93 +1,33 @@
-"""The port's study entries (``pipeline.run_pipeline`` and ``run_all``) on two
-small monuments, against its own stages and against the JAX package's
-``run_all``.
-
-Scenes, written as PNGs in the reference layout: Akbar at 128 (the oracle's
-recovered front mask and a planted drone view,
-``scripts/make_torch_port_stage2_fixture.py::akbar_128``) and Bibi's recovered
-masks strided to 128 x 80 with a drone view planted through the committed Bibi
-drone camera at a quarter of its scale.  Knobs are cut as in the verify notes:
-stage 2 at generations 4 and population 16, stage 3 on a 3 x 3 lattice.  Bibi's
-drone view lands under its retry floor, so the retry family runs.
+"""The port's study entries (``pipeline.run_all``) on two small monuments
+(``torch_run_all_cases``): against the JAX package's ``run_all``, against
+each monument's stage 3 alone, and the batched stage 2's order of events.
 
 Against the JAX package the port takes the JAX draws and the JAX keypoint fit
 (the LM sits on a flat ridge), and the JAX package's one-hot surrogate
 objective is switched off (``_MM_PLANE_MAX = 0``): then both packages take the
 same decisions, and the cameras and deform dicts are identical."""
 
-import importlib.util
 import json
 from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from pbr3d import pipeline as jpipe
 from pbr3d.camera import align as jalign
-from pbr3d.camera import estimate as jest
 from pbr3d.camera.geometry import params_to_vector
 from pbr3d_torch import pipeline as tpipe
-from pbr3d_torch.carving.fused import carve_monument_fused
 from pbr3d_torch.io.artifacts import load_voxel_grid_labels
-from pbr3d_torch.io.masks import MaskSet
 from pbr3d_torch.utils import profiling
 
-REPO = Path(__file__).resolve().parents[1]
-CAMS = REPO / "results_temp_golden/2.Perspective_Camera_Estimation"
-MONUMENTS = ["Akbar", "Bibi"]
-KW2 = dict(generations=4, population=16, seed=0)
-KW3 = dict(search_stride=8, chunk=32, scale_range=(0.9, 1.1, 3), shift_range=(-20, 20, 3),
-           refine_steps=3)
+from torch_run_all_cases import (  # noqa: F401  (fixtures: fx, draws, root, jax_keypoint_fit)
+    KW2, KW3, MONUMENTS, _scenes, draws, fx, jax_keypoint_fit, root,
+)
+
+pytest_plugins = ["torch_threads"]
+
 DIRS = ("1.Orthographic_Voxel_Carving", "2.Perspective_Camera_Estimation",
         "3.Part-wise_3D_Refinement")
-
-
-@pytest.fixture(scope="module")
-def fx():
-    spec = importlib.util.spec_from_file_location(
-        "make_torch_port_stage2_fixture", REPO / "scripts" / "make_torch_port_stage2_fixture.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.fixture(scope="module")
-def draws(fx):
-    cache = {}
-
-    def provider(seed, generations, population):
-        key = (seed, generations, population)
-        if key not in cache:
-            cache[key] = fx.jax_draws(*key)
-        return cache[key]
-
-    return provider
-
-
-@pytest.fixture(scope="module")
-def root(fx, tmp_path_factory):
-    """The data root with both monuments' front and drone PNGs."""
-    _, akbar = fx.akbar_128()
-    bibi = np.load(REPO / "tests/fixtures/torch_port_Bibi_512.npz")
-    planes = [bibi[k][::4, ::4] for k in ("binary", "exterior_labels", "semantic_labels")]
-    grid = carve_monument_fused(MaskSet.from_labels(*planes), device="cpu")
-    cam = json.loads((CAMS / "Bibi_camera_params_final.json").read_text())["drone"]
-    cam = {k: np.asarray(v, np.float64) / 4 for k, v in cam.items() if k not in ("H", "W")}
-    root = tmp_path_factory.mktemp("data")
-    fx.write_mask_pngs(root, "Akbar", akbar)
-    fx.write_mask_pngs(root, "Bibi", {"front": planes[2], "drone": fx.planted_view(grid, cam, 84, 123)})
-    return root
-
-
-@pytest.fixture(scope="module")
-def jax_keypoint_fit():
-    """The port's pipeline with the JAX package's keypoint fit patched in."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(tpipe, "optimize_camera_with_keypoints",
-               lambda vk, ik, hw, init, device: jest.optimize_camera_with_keypoints(vk, ik, hw, init))
-    yield
-    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -208,59 +148,6 @@ def test_a_monument_in_the_pool_gets_the_deforms_it_gets_alone(port_run, root, m
     np.testing.assert_array_equal(grid3, res.grid_stage3)
 
 
-@pytest.fixture(scope="module")
-def chained(root, draws, jax_keypoint_fit):
-    """Akbar through the port's three stages, one call after the other."""
-    grid = tpipe.run_stage1("Akbar", root, 128, device="cpu")
-    cams = tpipe.run_stage2("Akbar", grid, root, draws=draws, device="cpu", **KW2)
-    deforms, grid3 = tpipe.run_stage3("Akbar", grid, cams["final"]["front"], root, device="cpu", **KW3)
-    return grid, cams, deforms, grid3
-
-
-def _same_as_chained(res, chained):
-    grid, cams, deforms, grid3 = chained
-    np.testing.assert_array_equal(res.grid_stage1, grid)
-    for tag in cams:
-        for view in cams[tag]:
-            np.testing.assert_array_equal(params_to_vector(res.cameras[tag][view]),
-                                          params_to_vector(cams[tag][view]))
-    assert res.deform_params == deforms
-    np.testing.assert_array_equal(res.grid_stage3, grid3)
-
-
-def test_run_pipeline_equals_chaining_the_stages(chained, root, draws, tmp_path, capsys):
-    res = tpipe.run_pipeline("Akbar", root, 128, tmp_path, stage2_kw=dict(KW2, draws=draws),
-                             stage3_kw=KW3, device="cpu")
-    _same_as_chained(res, chained)
-    assert all(res.timings[k] > 0 for k in ("stage1", "stage2", "stage3"))
-    err = capsys.readouterr().err
-    assert "[Akbar] stage1" in err and "grid=(128, 123, 128)" in err
-    assert "[Akbar] stage2" in err and "views=['front', 'drone']" in err
-    assert "[Akbar] stage3" in err and "parts=6" in err
-    assert len([p for p in tmp_path.rglob("*") if p.is_file()]) == 1 + 3 + 2
-
-
-def test_run_all_of_one_monument_takes_the_serial_route_with_an_injected_grid(
-        chained, root, draws, monkeypatch):
-    """One monument alone batches nothing; ``run_pipeline`` with a grid and
-    its time injected skips stage 1 and reports the given time."""
-    calls = []
-    body = tpipe.run_pipeline_body
-    monkeypatch.setattr(tpipe, "run_pipeline_body", lambda *a, **k: calls.append(k) or body(*a, **k))
-    res = tpipe.run_all(["Akbar"], strict=True, data_root=root, max_dim=128,
-                        stage2_kw=dict(KW2, draws=draws), stage3_kw=KW3, device="cpu")
-    assert list(res) == ["Akbar"] and len(calls) == 1 and calls[0]["grid_stage1"] is None
-    _same_as_chained(res["Akbar"], chained)
-    monkeypatch.setattr(tpipe, "carve_monument_fused", None)  # stage 1 must not run
-    inj = tpipe.run_pipeline("Akbar", root, 128, grid_stage1=chained[0], stage1_time=1.25,
-                             stage2_kw=dict(KW2, draws=draws), stage3_kw=KW3, device="cpu")
-    assert inj.timings["stage1"] == 1.25 and inj.grid_stage1 is chained[0]
-    _same_as_chained(inj, chained)
-
-
-def _scenes(root):
-    return {m: tpipe.load_scene_masks(root, m, 128) for m in MONUMENTS}
-
 
 def _recorded_stage2(port_run, root, draws, monkeypatch, **kw):
     """``_stage2_all_batched`` on the run's grids with every grouped search
@@ -323,55 +210,3 @@ def test_deep_polish_fires_the_fronts_between_its_front_and_drone_trials(
             np.testing.assert_array_equal(e[2], params_to_vector(cams[e[1]]["final"]["front"]))
     for m in MONUMENTS:  # a trial is kept only where it scored higher
         assert set(cams[m]["final"]) == {"front", "drone"}
-
-
-TINY2 = dict(generations=1, population=8, seed=0)
-TINY3 = dict(KW3, part_names=["chhatris"], exact_verify=False)
-
-
-def _with_blank(root):
-    scenes = _scenes(root)
-    blank = {v: np.zeros_like(mask) for v, mask in scenes["Akbar"].views.items()}
-    return {"Blank": tpipe.SceneMasks(scenes["Akbar"].front, blank, scenes["Akbar"].nb4),
-            "Akbar": scenes["Akbar"]}
-
-
-def test_a_monument_whose_views_all_fail_raises_under_strict(root):
-    with pytest.raises(RuntimeError, match="Blank: no view passed camera estimation"):
-        tpipe.run_all_body(_with_blank(root), strict=True, max_dim=128, stage2_kw=TINY2,
-                           stage3_kw=TINY3, device="cpu")
-
-
-@pytest.mark.parametrize("batch_stage2", [True, False])
-def test_a_monument_whose_views_all_fail_is_skipped_without_strict(root, batch_stage2, capsys):
-    res = tpipe.run_all_body(_with_blank(root), strict=False, batch_stage2=batch_stage2, max_dim=128,
-                             stage2_kw=TINY2, stage3_kw=TINY3, device="cpu")
-    assert list(res) == ["Akbar"] and list(res["Akbar"].deform_params) == ["chhatris"]
-    err = capsys.readouterr().err
-    assert "[stage2] Blank/front skipped" in err and "[stage2] Blank/drone skipped" in err
-    assert "Blank: no view passed camera estimation" in err
-    assert ("[run_all] Blank stage3 FAILED" if batch_stage2 else "[run_all] Blank FAILED") in err
-
-
-@pytest.mark.parametrize("fault", [torch.OutOfMemoryError("CUDA out of memory"),
-                                   RuntimeError("CUDA error: an illegal memory access"),
-                                   ValueError("no such part")])
-def test_a_device_fault_is_raised_whatever_strict_says(root, fault, monkeypatch, capsys):
-    """``strict=False`` reports and skips a monument that fails, but never a
-    device fault."""
-    body = tpipe.run_stage3_body
-
-    def stage3(m, *a, **k):
-        if m == "Bibi":
-            raise fault
-        return body(m, *a, **k)
-
-    monkeypatch.setattr(tpipe, "run_stage3_body", stage3)
-    run = lambda: tpipe.run_all_body(_scenes(root), strict=False, max_dim=128, stage2_kw=TINY2,
-                                     stage3_kw=TINY3, device="cpu")
-    if isinstance(fault, ValueError):
-        assert list(run()) == ["Akbar"]
-        assert "[run_all] Bibi stage3 FAILED" in capsys.readouterr().err
-    else:
-        with pytest.raises(type(fault), match="CUDA"):
-            run()

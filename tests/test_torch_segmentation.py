@@ -20,6 +20,8 @@ from pbr3d_torch import config as torch_config
 from pbr3d_torch import segmentation as tseg
 from pbr3d_torch.segmentation import crop as tcrop
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 
 

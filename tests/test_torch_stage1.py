@@ -16,6 +16,8 @@ from pbr3d.config import PART_IDS, rgb_to_labels
 from pbr3d_torch.carving import fused as torch_fused
 from pbr3d_torch.io.masks import MaskSet
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "fixtures"
 

@@ -27,6 +27,8 @@ from pbr3d_torch.utils import profiling
 from portbench.harness import stage12_reference as ref12
 from portbench.harness import study_reference as sref
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(generations=4, population=16, seed=0)
 

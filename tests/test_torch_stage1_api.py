@@ -35,6 +35,8 @@ from pbr3d_torch.ops import carve as torch_carve
 from pbr3d_torch.ops import rotate as torch_rotate
 from test_torch_stage1 import FIXTURES, _recover_labels
 
+pytest_plugins = ["torch_threads"]
+
 ANGLES = [0.0, 5.0, 30.0, 45.0, 90.0, 137.0, 180.0]
 
 

@@ -23,6 +23,8 @@ from pbr3d.camera.geometry import params_to_vector
 from pbr3d_torch import pipeline as tpipe
 from pbr3d_torch.camera import align as talign
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(generations=4, population=16, seed=0)
 STAGE2_DIR = "2.Perspective_Camera_Estimation"

@@ -40,6 +40,8 @@ from torch_stage2_cases import (  # noqa: F401  (fixtures: fx, akbar, kp, shell)
     IDS, PARTS, VIEWS, _cams, _fit_rows, _hard_cams, _hard_points, akbar, fx, kp, shell,
 )
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -39,6 +39,8 @@ from torch_stage2_cases import (  # noqa: F401  (fixtures: fx, akbar, kp, shell)
     IDS, PARTS, VIEWS, _cams, _fit_rows, _hard_cams, _hard_points, akbar, fx, kp, shell,
 )
 
+pytest_plugins = ["torch_threads"]
+
 
 def _splat_route(cams, pts, labels, valid, gt, H, W, true_hw=None):
     """The route ``splat_iou`` replaces: the int64-key splat, then the IoU."""

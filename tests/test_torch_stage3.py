@@ -24,6 +24,8 @@ from pbr3d_torch.deform import verify as tverify
 from pbr3d_torch.io import artifacts as tart
 from pbr3d_torch.io.masks import load_mask_labels_for_grid
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 CAMS = REPO / "results_temp_golden/2.Perspective_Camera_Estimation"
 STAGE3_DIR = "3.Part-wise_3D_Refinement"

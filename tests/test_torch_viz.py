@@ -22,6 +22,8 @@ from pbr3d.utils import viz as jviz  # noqa: E402
 from pbr3d_torch.io.artifacts import load_camera_json, load_voxel_grid_labels  # noqa: E402
 from pbr3d_torch.utils import viz as tviz  # noqa: E402
 
+pytest_plugins = ["torch_threads"]
+
 REPO = Path(__file__).resolve().parents[1]
 RES = REPO / "results_temp_golden"
 M = "Akbar"
