@@ -22,9 +22,11 @@ Phases, each of which fails the script loudly (there is no CPU fallback):
    ``components_plain`` and host scipy, and ``component_stats_kernel``
    against ``component_stats_plain`` and, bit for bit, the host statistics,
    at every case of ``COMPONENT_CASES`` under face and full connectivity,
-   on the Bibi@512 part masks and occupancy of the fixture's grid, and on
-   the bbox crops the fused route labels, each case launched three times
-   with equal results; then both timed on the path's part mask
+   on the Bibi@512 part masks and occupancy of the fixture's grid, on the
+   bbox crops the fused route labels and on the minaret crops stage 2
+   labels in the fixture's grid and the five golden grids (whose card
+   components equal the host's bit for bit), each case launched three
+   times with equal results; then both timed on the path's part mask
    (``COMPONENT_TIMED_PART``) and the occupancy beside their byte bounds,
    the plain versions and the host labeller and statistics (no PyTorch
    call labels components), and the unfused route's bbox labelling against
@@ -170,6 +172,7 @@ import torch
 import bench_torch
 from bench_torch import device_profile, query_card, study_scenes
 from pbr3d_torch import config, pipeline
+from pbr3d_torch.camera import keypoints
 from pbr3d_torch.camera.align import (
     _batch_iou, evaluate_camera_iou, mask_labels_selected, refine_cameras_batched,
 )
@@ -180,7 +183,7 @@ from pbr3d_torch.camera.estimate import (
 )
 from pbr3d_torch.camera.geometry import params_to_vector, vector_to_params
 from pbr3d_torch.camera.keypoints import extract_minaret_kps_for_view
-from pbr3d_torch.carving.fused import _label_part, _sweep_working_set, carve_monument_fused, carve_monuments_batched
+from pbr3d_torch.carving.fused import _sweep_working_set, carve_monument_fused, carve_monuments_batched
 from pbr3d_torch.carving.stage1 import (
     carve_monument, component_guided_carve, extrude_interior_parts, global_carve, part_carve,
     recolor_backward_components, reorient,
@@ -288,8 +291,8 @@ KNN_TIMED = ((50000, 50000, 2), (120000, 120000, 20), (100000, 100000, 1), (1857
 #: under full); rows of 31, 33, 129 and 513 voxels and a plane whose rows
 #: are not a multiple of 32 voxels, whose runs cross the kernel's 32-voxel
 #: words; rows of 512 set voxels beside rows of one-voxel runs
-#: (``stripes``).  Phase 2 adds the Bibi@512 part masks and the fused
-#: route's bbox crops.
+#: (``stripes``).  Phase 2 adds the Bibi@512 part masks, the fused route's
+#: bbox crops and stage 2's minaret crops.
 COMPONENT_CASES = (
     ("random:0.3", (160, 160, 160)), ("random:0.6", (160, 160, 160)), ("random:0.75", (160, 160, 160)),
     ("random:0.3", (1, 2048, 2048)), ("random:0.6", (1, 2048, 2048)), ("random:0.75", (1, 2048, 2048)),
@@ -309,6 +312,9 @@ COMPONENT_HOST_STATS_MAX = 20000
 #: Bibi@512 masks phase 2 checks, and the one it times beside the occupancy.
 COMPONENT_PARTS = ("dome", "chhatris", "front_minarets", "back_minarets", "small_minarets")
 COMPONENT_TIMED_PART = "front_minarets"
+#: The reoriented stage-1 grids at 512 whose minarets stage 2 labels in the
+#: notebook 1-2 cell (``study-golden.stage12``); phase 2 checks their crops.
+STAGE1_GOLDEN = REPO / "portbench" / "data" / "stage1_golden"
 
 FIXTURE2 = REPO / "tests/fixtures/torch_port_Bibi_512_stage2.npz"
 VIEWS = ("front", "drone")
@@ -794,7 +800,9 @@ def phase_components_kernel(fx) -> dict:
     """The components kernels against their plain versions and host scipy at
     every ``COMPONENT_CASES`` case, on the Bibi@512 part masks of the JAX
     grid (phase 3's grid, which phase 3 holds equal to it) and on the bbox
-    crops the fused route labels; then kernel, plain version and host scipy
+    crops the fused route labels and on stage 2's minaret crops of the
+    fixture's grid and the five golden grids (the card's minarets equal
+    the host's); then kernel, plain version and host scipy
     timed in turns on the path's part mask and on the whole occupancy (with
     the labelling's device time by pass), and the whole grid against the
     part's bbox as what the unfused route labels.  Phase 9 times the
@@ -823,8 +831,26 @@ def phase_components_kernel(fx) -> dict:
     check(len(crops) > 0, "the fused route labelled nothing")
     for k, (mask, connectivity) in enumerate(crops):
         components_agree(mask, connectivity, f"fused route crop {k} {mask.shape}")
+    n_fused = len(crops)
+
+    # stage 2's minaret crops: labelled on the card, equal to the host's
+    grids = {"Bibi@512": grid} | {f"golden {path.name.split('_')[0]}": load_voxel_grid_labels(path)
+                                  for path in sorted(STAGE1_GOLDEN.glob("*_voxel_grid.npz"))}
+    for name, g in grids.items():
+        crops.clear()
+        with mock.patch.object(components, "components_kernel", recording), \
+                profiling.recording() as spans, profiling.trace("stage2"):
+            card = keypoints.extract_minaret_voxels_by_label(torch.from_numpy(g).cuda())
+        host = keypoints.extract_minaret_voxels_by_label(g)
+        counted = sum(sp.counts.get("stage2.device_labels", 0) for sp in spans)
+        check(len(crops) == counted == 2, f"stage 2 {name}: {len(crops)} crops labelled, {counted} counted")
+        check(list(card) == list(host) and all(card[k].dtype == host[k].dtype and np.array_equal(card[k], host[k])
+                                               for k in host), f"stage 2 {name}: the card's minarets are not the host's")
+        for k, (mask, connectivity) in enumerate(crops):
+            components_agree(mask, connectivity, f"stage 2 {name} minaret crop {k} {mask.shape}")
+        log(f"stage 2 {name}: minarets {{{', '.join(f'{k}: {len(v)}' for k, v in card.items())}}} equal to the host's")
     log(f"components checks: {len(COMPONENT_CASES) * 2} cases, {len(parts) + 1} Bibi@512 masks, "
-        f"{len(crops)} fused-route crops, {time.perf_counter() - t0:.1f} s")
+        f"{n_fused} fused-route crops, {2 * len(grids)} stage-2 minaret crops, {time.perf_counter() - t0:.1f} s")
 
     # labels are compared for equality above: no error
     out = {key: {"max_abs_err": 0.0, "bound_by": "bytes", "library_ms": None}
@@ -843,7 +869,7 @@ def phase_components_kernel(fx) -> dict:
         return components.connected_components_device(grid_t == pid, "face")[1]
 
     def bbox():
-        return _label_part(grid_t, pid, "stage1.part")[1]
+        return components.label_part(grid_t, pid, "stage1.part")[1]
 
     check(whole() == bbox(), "the whole grid and the part's bbox give other component counts")
     times = {"whole": [], "bbox": []}
@@ -989,7 +1015,7 @@ def phase_stage2_kernels(fx, fx2, fxs, device: str = "cuda", study_tag: str = "g
     views = {v: fx2[f"{v}_mask"] for v in VIEWS}
     rows = []
     for v in VIEWS:
-        vk, ik = extract_minaret_kps_for_view(grid, views[v])
+        vk, ik = extract_minaret_kps_for_view(grid_dev, views[v])
         init = auto_compute_initial_params_matching_bbox(grid_dev, views[v], ALIGN_PARTS, device=device)
         check(np.array_equal(params_to_vector(init), fx2[f"{v}_init"]), f"{v}: bbox init vs JAX")
         rows.append(keypoint_fit_inputs(vk, ik, views[v].shape, init))
@@ -1007,7 +1033,7 @@ def phase_stage2_kernels(fx, fx2, fxs, device: str = "cuda", study_tag: str = "g
     for m, s in scenes.items():
         g_dev = torch.as_tensor(grids[m], device=device)
         for v, mask in s.views.items():
-            vk, ik = extract_minaret_kps_for_view(grids[m], mask)
+            vk, ik = extract_minaret_kps_for_view(g_dev, mask)
             init = auto_compute_initial_params_matching_bbox(g_dev, mask, ALIGN_PARTS, device=device)
             study_rows.append(keypoint_fit_inputs(vk, ik, mask.shape[:2], init))
             names.append(f"{m}/{v}")
@@ -1190,7 +1216,7 @@ def phase_stage2(fx2, grid: np.ndarray, device: str = "cuda", launches=None) -> 
             f"tol={BATCH_IOU_ATOL:g} best={ious.max():.6f} batch_ms={ms:.3f}")
         check(err.max() <= BATCH_IOU_ATOL, f"{v}: candidate IoUs vs JAX off by {err.max()}")
 
-        vk, ik = extract_minaret_kps_for_view(grid, views[v])
+        vk, ik = extract_minaret_kps_for_view(grid_dev, views[v])
         init = auto_compute_initial_params_matching_bbox(grid_dev, views[v], ALIGN_PARTS, device=device)
         check(np.array_equal(params_to_vector(init), fx2[f"{v}_init"]), f"{v}: bbox init vs JAX")
         t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """Minaret anchor extraction — 3D components in the voxel grid, 2D regions in
 the mask — and top/bottom keypoints, as in ``pbr3d.camera.keypoints``.
 
-Host numpy/scipy work on host label planes, on the port's host component
-labeller; the keypoint dicts equal the JAX package's.
+The 3D components are labelled and measured where the grid lies (the
+components kernels for a CUDA grid, the host's scipy otherwise); the 2D
+regions and the keypoints are host numpy/scipy work on host label planes.
+The keypoint dicts equal the JAX package's.
 
 Conventions preserved from the reference (utils/camera_estimation.py:20-50,
 176-210, 247-344):
@@ -26,58 +28,62 @@ from __future__ import annotations
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from pbr3d_torch import config
-from pbr3d_torch.ops.components import component_stats, connected_components
+from pbr3d_torch.ops.components import component_stats, connected_components, label_part
 
 MINARET_PARTS = ("front_minarets", "back_minarets")
 
 
+def _component_coords(comp: torch.Tensor, stats, cid: int, off: np.ndarray) -> np.ndarray:
+    """(M, 3) int64 coords of component ``cid`` of the crop labels ``comp``
+    in the grid's frame (crop offset ``off``), in np.argwhere's raster
+    order: ``torch.nonzero`` over the component's bbox slice of the crop,
+    moved to the grid's frame where the crop lies, and one download."""
+    lo = stats["bbox_min"][cid]
+    sl = tuple(slice(int(a), int(b) + 1) for a, b in zip(lo, stats["bbox_max"][cid]))
+    # the shift is added before the download: on the host each add makes a
+    # new array of the component's size (~15 MB at 512), slower than the card
+    shift = torch.from_numpy(lo + off).to(comp.device)
+    return (torch.nonzero(comp[sl] == cid) + shift).cpu().numpy()
+
+
 def extract_minaret_voxels_by_label(
-    grid_labels: np.ndarray,
+    grid_labels,
     minaret_parts: Sequence[str] = MINARET_PARTS,
 ) -> Dict[str, np.ndarray]:
-    """name -> (M, 3) int component coords in (d0, d1, d2) order."""
-    grid_labels = np.asarray(grid_labels)
-    components: List[Tuple[np.ndarray, int, np.ndarray]] = []
+    """name -> (M, 3) int64 component coords in (d0, d1, d2) order.
+
+    ``grid_labels``: an array or a tensor.  Each part is labelled and
+    measured where the grid lies, on its occupied bbox (:func:`label_part`,
+    spans ``stage2.minarets.*``): a CUDA grid by the components kernels,
+    each crop counted as ``stage2.device_labels``; a CPU tensor or an array
+    by the host's scipy.  Only the four tallest components' coordinates
+    are taken, each on the grid's device, and cross to the host."""
+    grid = grid_labels if isinstance(grid_labels, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(grid_labels))
+    # (centroid, height, (crop labels, statistics, cid, crop offset))
+    components: List[Tuple[np.ndarray, int, tuple]] = []
     for part in minaret_parts:
-        pid = config.PART_IDS[part]
-        mask = grid_labels == pid
-        # Crop to the part's bbox before labeling: the minarets occupy a
-        # thin slab of the grid, so the crop labels far fewer voxels, and
-        # components of a mask are always contained in its bbox, so the
-        # labeling is unchanged.
-        nz = [np.flatnonzero(mask.any(axis=tuple(a for a in range(3) if a != ax)))
-              for ax in range(3)]
-        if any(len(i) == 0 for i in nz):
+        found = label_part(grid, config.PART_IDS[part], "stage2.minarets", part=part)
+        if found is None:
             continue
-        off = np.array([i[0] for i in nz], np.int64)
-        sub = mask[nz[0][0]: nz[0][-1] + 1,
-                   nz[1][0]: nz[1][-1] + 1,
-                   nz[2][0]: nz[2][-1] + 1]
-        comp, n = connected_components(sub, "face")
-        if n == 0:
-            continue
-        stats = component_stats(comp, n)
+        comp, n, stats, box = found
+        off = np.array([s.start for s in box], np.int64)
         for cid in range(1, n + 1):
             if stats["count"][cid] == 0:
                 continue
-            # coords from the small bbox slice, not a full-grid argwhere
-            # per component
-            lo = stats["bbox_min"][cid]
-            hi = stats["bbox_max"][cid] + 1
-            sl = tuple(slice(int(a), int(b)) for a, b in zip(lo, hi))
-            coords = np.argwhere(comp[sl] == cid) + np.asarray(lo) + off
             centroid = stats["centroid"][cid] + off
             height = int(stats["bbox_max"][cid, 1] - stats["bbox_min"][cid, 1])
-            components.append((centroid, height, coords))
+            components.append((centroid, height, (comp, stats, cid, off)))
 
     if len(components) < 4:
         raise ValueError(f"Expected >=4 minarets, found {len(components)}")
 
     top4 = sorted(components, key=lambda c: -c[1])[:4]
     centroids = np.stack([c[0] for c in top4])
-    coord_sets = [c[2] for c in top4]
+    coord_sets = [_component_coords(*c[2]) for c in top4]
 
     order_x = np.argsort(centroids[:, 0])
     left = sorted(order_x[:2], key=lambda i: centroids[i, 2])

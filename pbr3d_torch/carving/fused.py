@@ -12,8 +12,8 @@ Phases (reference: utils/voxel_carving_utils.py:269-400):
 
 1. global carve + per-part-group re-carve (device sweeps);
 2. component-guided carve: each part labelled on its occupied bbox
-   (:func:`_label_part`), then the device sweeps of the component bbox
-   windows;
+   (:func:`~pbr3d_torch.ops.components.label_part`), then the device
+   sweeps of the component bbox windows;
 3. interior extrusion of doors/windows in the four directions (device);
 4. the persistent transpose+flip reorientation and the back-minaret
    recolor (device), then the grid's one download.
@@ -44,9 +44,7 @@ import torch
 from pbr3d_torch import config
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.ops.carve import _stacked_plans, sweep_scan
-from pbr3d_torch.ops.components import (
-    _host_component_stats, _host_scipy_label, component_stats, connected_components_device,
-)
+from pbr3d_torch.ops.components import label_part
 from pbr3d_torch.utils import profiling
 from pbr3d_torch.utils.streams import adopt, worker_stream
 
@@ -119,41 +117,6 @@ def _global_and_part_carve(
     return [g.contiguous() for g in _split_plane(final, whd, offsets)]
 
 
-def _label_part(grid: torch.Tensor, part_id: int, span: str, centroid_axes=None, **attrs):
-    """The face components of ``grid == part_id``, labelled on the part's
-    occupied bbox (the grid's components, numbered in the same raster
-    order): ``(labels int32 of the crop on the grid's device, n, statistics
-    as host arrays indexed 0..n, the crop's slices)``, or None when the
-    part is absent.  Finding the bbox downloads the three occupancy
-    profiles.
-
-    The labeller follows the grid's device.  A CUDA grid is labelled and
-    measured on the card (:func:`connected_components_device`,
-    :func:`component_stats`), counted as ``stage1.device_labels``; a CPU
-    grid by the host's scipy on its numpy view, much faster there than the
-    plain relaxation.  Both give the same labels and the same statistics
-    bit for bit.  ``centroid_axes`` limits the centroid columns the host
-    fills (None: all; the card fills all).  The spans are
-    ``<span>.{eqbbox,label,stats}`` with ``attrs``."""
-    with profiling.span(span + ".eqbbox", **attrs):
-        part = grid == part_id
-        profiles = torch.cat([part.any(dim=tuple(a for a in range(3) if a != ax)) for ax in range(3)])
-        occupied = [np.flatnonzero(p) for p in np.split(profiles.cpu().numpy(), np.cumsum(grid.shape)[:-1])]
-    if occupied[0].size == 0:
-        return None
-    box = tuple(slice(int(o[0]), int(o[-1]) + 1) for o in occupied)
-    with profiling.span(span + ".label", **attrs):
-        if grid.is_cuda:
-            labels, n = connected_components_device(part[box], "face")
-            profiling.count("stage1.device_labels")
-        else:
-            host, n = _host_scipy_label(part[box].numpy(), "face")
-            labels = torch.from_numpy(host)
-    with profiling.span(span + ".stats", **attrs):
-        stats = component_stats(labels, n) if grid.is_cuda else _host_component_stats(host, n, centroid_axes)
-    return labels, n, stats, box
-
-
 def _collect_guided_jobs(
     grid: torch.Tensor,  # (w, h, d) labels of one scene
     exterior_labels: np.ndarray,
@@ -165,14 +128,14 @@ def _collect_guided_jobs(
     (full-frame), its own occupancy ``comp (w, h, d)`` bool, the bbox-cropped
     2D part mask ``m_wh (w, h)`` bool, both on the grid's device, and the
     sweep ``angle``.  Each part is labelled on its occupied bbox
-    (:func:`_label_part`)."""
+    (:func:`~pbr3d_torch.ops.components.label_part`)."""
     jobs = []
     for part, angle in part_symmetry:
         target = PART_IDS[part]
         mask2d = exterior_labels == target
         if not mask2d.any():
             continue
-        found = _label_part(grid, target, "stage1.part", centroid_axes=(), part=part)
+        found = label_part(grid, target, "stage1.part", centroid_axes=(), part=part)
         if found is None:
             continue
         comp_c, n, stats, box = found
@@ -258,8 +221,8 @@ def guided_carve_all(
 ) -> torch.Tensor:
     """Component-guided carving of one scene for every part in
     ``part_symmetry``.  The grid stays on its device; each part is labelled
-    where it lies (:func:`_label_part`).  Updates ``grid`` in place and
-    returns it."""
+    where it lies (:func:`~pbr3d_torch.ops.components.label_part`).
+    Updates ``grid`` in place and returns it."""
     return guided_carve_batched({0: grid}, {0: _collect_guided_jobs(grid, exterior_labels, part_symmetry)})[0]
 
 
@@ -339,9 +302,10 @@ def recolor_back(
     ``part_name`` components (smallest mean coordinate along ``sort_axis``,
     ties to the lower component id) become ``new_part_name``.  Labelling
     runs where the grid lies, on the part's occupied bbox
-    (:func:`_label_part`); the downloaded centroids are ranked on the host
-    and the recolor runs on the grid's device."""
-    found = _label_part(g, PART_IDS[part_name], "stage1.recolor", centroid_axes=(sort_axis,))
+    (:func:`~pbr3d_torch.ops.components.label_part`); the downloaded
+    centroids are ranked on the host and the recolor runs on the grid's
+    device."""
+    found = label_part(g, PART_IDS[part_name], "stage1.recolor", centroid_axes=(sort_axis,))
     if found is None or found[1] <= k:
         return g
     comp, n, stats, box = found

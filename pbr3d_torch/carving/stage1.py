@@ -26,7 +26,7 @@ grid but where step 3 differs (see :func:`component_guided_carve`), as the
 JAX package's two routes do.
 Device work runs on ``device``, and so does the labelling of steps 3 and
 5 on a CUDA device: both routes label a part through
-:func:`pbr3d_torch.carving.fused._label_part` (scipy raster order, as the
+:func:`pbr3d_torch.ops.components.label_part` (scipy raster order, as the
 JAX package numbers them), whose labels stay on the grid's device while
 only the small statistics cross to the host.
 """
@@ -39,9 +39,10 @@ import numpy as np
 import torch
 
 from pbr3d_torch import config
-from pbr3d_torch.carving.fused import _extrude, _label_part, recolor_back, reorient
+from pbr3d_torch.carving.fused import _extrude, recolor_back, reorient
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.ops.carve import rotate_carve_sweep
+from pbr3d_torch.ops.components import label_part
 
 
 def _as_wh(mask, W: int, H: int):
@@ -137,7 +138,7 @@ def component_guided_carve(
     mask2d = np.asarray(exterior_labels) == target  # (H, W)
     if not mask2d.any():
         return labels_grid
-    found = _label_part(labels_grid, target, "stage1.part", centroid_axes=(), part=part_name)
+    found = label_part(labels_grid, target, "stage1.part", centroid_axes=(), part=part_name)
     if found is None:
         return labels_grid
     comp, n, stats, box = found

@@ -20,10 +20,10 @@ each entry takes:
   CPU), whose values are bit-equal to the host's.
 
 Every route numbers components 1..n in scipy's raster order (the order of
-each component's first voxel).  Both stage-1 routes label a part through
-:func:`pbr3d_torch.carving.fused._label_part`, which sends a CUDA grid to
-the kernels and a CPU grid to the host helpers; the keypoints, the voxel
-helpers and the morphology call the host helpers explicitly.
+each component's first voxel).  Both stage-1 routes and stage 2's 3D
+minarets label a part of a label grid through :func:`label_part`, which
+sends a CUDA grid to the kernels and a CPU grid to the host helpers; the
+voxel helpers and the morphology call the host helpers explicitly.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 from pbr3d_torch.ops.cuda_kernels import (
     COMPONENTS_BIG, component_stats_kernel, component_stats_plain, components_kernel, components_plain,
 )
+from pbr3d_torch.utils import profiling
 
 _BIG = np.int32(COMPONENTS_BIG)
 
@@ -248,3 +249,39 @@ def component_stats(labels, n: int):
     # float64 bincounts and dot products give these bits
     centroid[occupied] = sums[occupied].astype(np.float64) / counts[occupied][:, None]
     return {"bbox_min": mins, "bbox_max": maxs, "centroid": centroid, "count": counts}
+
+
+def label_part(grid: torch.Tensor, part_id: int, span: str, centroid_axes=None, **attrs):
+    """The face components of ``grid == part_id``, labelled on the part's
+    occupied bbox (the grid's components, numbered in the same raster
+    order): ``(labels int32 of the crop on the grid's device, n, statistics
+    as host arrays indexed 0..n, the crop's slices)``, or None when the
+    part is absent.  Finding the bbox downloads the three occupancy
+    profiles.
+
+    The labeller follows the grid's device.  A CUDA grid is labelled and
+    measured on the card (:func:`connected_components_device`,
+    :func:`component_stats`), each crop counted as ``<stage>.device_labels``
+    after the span's first word (``stage1.part`` counts
+    ``stage1.device_labels``); a CPU grid by the host's scipy on its numpy
+    view, much faster there than the plain relaxation.  Both give the same labels and the same statistics
+    bit for bit.  ``centroid_axes`` limits the centroid columns the host
+    fills (None: all; the card fills all).  The spans are
+    ``<span>.{eqbbox,label,stats}`` with ``attrs``."""
+    with profiling.span(span + ".eqbbox", **attrs):
+        part = grid == part_id
+        profiles = torch.cat([part.any(dim=tuple(a for a in range(3) if a != ax)) for ax in range(3)])
+        occupied = [np.flatnonzero(p) for p in np.split(profiles.cpu().numpy(), np.cumsum(grid.shape)[:-1])]
+    if occupied[0].size == 0:
+        return None
+    box = tuple(slice(int(o[0]), int(o[-1]) + 1) for o in occupied)
+    with profiling.span(span + ".label", **attrs):
+        if grid.is_cuda:
+            labels, n = connected_components_device(part[box], "face")
+            profiling.count(span.split(".", 1)[0] + ".device_labels")
+        else:
+            host, n = _host_scipy_label(part[box].numpy(), "face")
+            labels = torch.from_numpy(host)
+    with profiling.span(span + ".stats", **attrs):
+        stats = component_stats(labels, n) if grid.is_cuda else _host_component_stats(host, n, centroid_axes)
+    return labels, n, stats, box

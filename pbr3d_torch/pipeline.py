@@ -205,7 +205,7 @@ def run_stage2_views(
         # The 3D minaret components depend only on the grid: shared by views.
         try:
             with profiling.span("stage2.labelling"):
-                vox_parts = extract_minaret_voxels_by_label(grid_labels)
+                vox_parts = extract_minaret_voxels_by_label(grid_dev)
         except ValueError:
             vox_parts = None
 
@@ -612,7 +612,7 @@ def _prep_stage2_monument(m: str, grid: np.ndarray, views: Mapping[str, np.ndarr
         grid_dev = torch.as_tensor(grid, device=device)
         with profiling.span("stage2.prep.vox_parts"):
             try:
-                vox_parts = extract_minaret_voxels_by_label(grid)
+                vox_parts = extract_minaret_voxels_by_label(grid_dev)
             except ValueError:
                 vox_parts = None
         with profiling.span("stage2.prep.shell"):

@@ -1,5 +1,5 @@
 """The part labelling of the fused stage-1 route follows the grid's device
-(``pbr3d_torch.carving.fused._label_part``): a CPU grid is labelled by the
+(``pbr3d_torch.ops.components.label_part``): a CPU grid is labelled by the
 host's scipy, a CUDA grid by the components kernels, and either way the
 guided carve's windows and the back-minaret recolour are those of the host
 route that labels a downloaded grid, and the JAX package's.
@@ -22,6 +22,7 @@ from pbr3d_torch import config
 from pbr3d_torch.carving import fused
 from pbr3d_torch.config import PART_IDS
 from pbr3d_torch.io.masks import MaskSet
+from pbr3d_torch.ops import components
 from pbr3d_torch.utils import profiling
 
 pytest_plugins = ["torch_threads"]
@@ -184,7 +185,7 @@ def _device_labels(spans):
 def test_a_cpu_grid_is_labelled_on_the_host(route, monkeypatch):
     """On a CPU grid the labelling is host scipy, never the plain
     relaxation, and nothing counts as a card labelling."""
-    monkeypatch.setattr(fused, "connected_components_device",
+    monkeypatch.setattr(components, "connected_components_device",
                         lambda *a: pytest.fail("a CPU grid reached the plain labeller"))
     masks = {"a": _synthetic(48, 48), "b": _synthetic(40, 56)}
     with profiling.recording() as spans, profiling.trace("cpu"):

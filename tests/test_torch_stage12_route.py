@@ -112,8 +112,9 @@ def test_each_body_is_a_trace_of_its_monument_and_the_searches_are_counted(recor
 @pytest.mark.parametrize("injected", [False, True])
 def test_run_pipeline_body_keeps_its_span_names_and_nesting(scene, recorded, injected, monkeypatch):
     """One study trace: stage 1, stage 2 and the stage-3 body under it, each
-    once, and stage 2's own spans under stage 2 (the front view alone; stage
-    3's body stubbed, its spans are its own)."""
+    once, stage 2's own spans under stage 2 and the minaret labelling's
+    under ``stage2.labelling`` (the front view alone; stage 3's body
+    stubbed, its spans are its own)."""
     front, views, _ = scene
     grid = recorded[0]
     monkeypatch.setattr(tpipe, "carve_monument_fused", lambda *a, **k: grid)
@@ -124,7 +125,12 @@ def test_run_pipeline_body_keeps_its_span_names_and_nesting(scene, recorded, inj
     by_id = {s.id: s for s in spans}
     edges = sorted({(s.name, by_id[s.parent].name if s.parent else None) for s in spans})
     assert edges == [("stage1", "study"), ("stage2", "study"), ("stage2.keypoint_lm", "stage2"),
-                     ("stage2.labelling", "stage2"), ("stage2.polish", "stage2"), ("stage2.search", "stage2"),
+                     ("stage2.labelling", "stage2"), ("stage2.minarets.eqbbox", "stage2.labelling"),
+                     ("stage2.minarets.label", "stage2.labelling"), ("stage2.minarets.stats", "stage2.labelling"),
+                     ("stage2.polish", "stage2"), ("stage2.search", "stage2"),
                      ("stage3.body", "study"), ("study", None)]
     assert [s.name for s in spans].count("stage1") == [s.name for s in spans].count("stage2") == 1
     assert len({s.trace for s in spans}) == 1
+    # a CPU grid's minarets are labelled on the host: no crop counts as a card labelling
+    assert [s.name for s in spans].count("stage2.minarets.label") == 2
+    assert sum(s.counts.get("stage2.device_labels", 0) for s in spans) == 0
