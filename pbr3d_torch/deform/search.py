@@ -250,6 +250,7 @@ def _eval_chunked(deforms: np.ndarray, chunk_cap: int, fn=None, approx=False,
     dev = kw["coords"].device
     d = torch.as_tensor(np.asarray(deforms, np.float32), device=dev)
     outs = [fn(d[i:i + chunk], approx=approx, **kw) for i in range(0, P, chunk)]
+    profiling.count("stage3.candidates", P)
     profiling.count("stage3.round_trips")
     return torch.cat(outs).cpu().numpy()
 

@@ -224,6 +224,7 @@ def enforce_no_regression(
                       f"{cells[p][0]:.3f}->{cells[p][1]:.3f}: revert to identity",
                       file=sys.stderr)
                 deforms[p]["deform"] = dict(identity)
+                profiling.count("stage3.reverts")
                 changed = True
             else:
                 # p is identity: rank the deformed parts by how much
@@ -246,6 +247,7 @@ def enforce_no_regression(
                           f"{cells[p][0]:.3f}->{cells[p][1]:.3f}: reverting "
                           f"offender {best_q}", file=sys.stderr)
                     deforms[best_q]["deform"] = dict(identity)
+                    profiling.count("stage3.reverts")
                     changed = True
         if not changed:
             break

@@ -370,6 +370,7 @@ def run_stage3_body(
 
     def _run_variant(gw, prof_kw, tag, **chain_kw):
         with profiling.span("stage3.refine_parts", monument=monument, variant=tag, gain_w=gw):
+            profiling.count("stage3.chains")
             return refine_parts(
                 grid_labels, mask, cam_final_front, part_names, device=device,
                 overrides=overrides, table=table,
