@@ -257,7 +257,10 @@ def build_taj_clouds(
         out["Completed (ICP Aligned)"] = torch.cat([sides["front"], back, left, right])
 
         if (root / voxel_npz).exists():
-            grid = torch.as_tensor(load_voxel_grid_labels(root / voxel_npz), device=device)
+            if torch.device(device).type == "cuda":  # inflated in steps, decoded on the card
+                grid = load_voxel_grid_labels(root / voxel_npz, device=device)
+            else:
+                grid = torch.as_tensor(load_voxel_grid_labels(root / voxel_npz), device=device)
             d0, d1, d2 = torch.nonzero(grid > 0, as_tuple=True)
             out["Carved Grid"] = torch.stack([d2, d1, d0], 1).to(torch.float64)
 

@@ -19,6 +19,7 @@ from pbr3d.io import artifacts as jax_artifacts
 from pbr3d.io import pointcloud as jax_pc
 from pbr3d_torch import config
 from pbr3d_torch.eval import preprocess as pre
+from pbr3d_torch.io import artifacts
 from pbr3d_torch.utils import profiling
 
 pytest_plugins = ["torch_threads"]
@@ -167,3 +168,23 @@ def test_build_taj_clouds_on_written_files(rng, tmp_path):
     (tmp_path / "synthetic_taj.obj").unlink()
     assert list(pre.build_taj_clouds(tmp_path, triples=triples, device="cpu")) == \
         ["Sparse", "Completed (ICP Aligned)", "Carved Grid"]
+
+
+def test_build_taj_clouds_carved_grid_equal_on_both_label_routes(tmp_path, monkeypatch):
+    """The card's route (the npz inflated in steps, the palette decoded by
+    torch) run on the CPU gives the host route's ``"Carved Grid"``."""
+    jax_pc.save_ply(tmp_path / "segmented_point_cloud_final.ply", _shell(np.random.default_rng(2)))
+    grid = np.zeros((9, 8, 7), np.uint8)
+    grid[2:7, 1:6, 2:6] = config.PART_IDS["full_building"]
+    grid[3:5, 6:8, 3:5] = config.PART_IDS["dome"]
+    grid[1, 1, 1] = config.PART_IDS["windows"]
+    jax_artifacts.save_voxel_grid(tmp_path / "Taj_voxel_grid.npz", grid)
+    host = pre.build_taj_clouds(tmp_path, device="cpu")["Carved Grid"]
+    monkeypatch.setattr(artifacts, "_STREAM_CHUNK", 30)  # 10 voxels a step, 51 steps
+    real = pre.load_voxel_grid_labels
+    monkeypatch.setattr(pre, "load_voxel_grid_labels", lambda path: real(path, device="cpu"))
+    with profiling.recording() as spans:
+        streamed = pre.build_taj_clouds(tmp_path, device="cpu")["Carved Grid"]
+    assert [s.counts for s in spans if s.name == "io.load_voxel_grid"] == [{"io.load_voxel_grid.device": 1}]
+    assert streamed.dtype == host.dtype == torch.float64 and len(host) == int((grid > 0).sum())
+    assert torch.equal(streamed, host)
